@@ -5,26 +5,35 @@
                                    # NVIDIA Hopper card and the CUDA toolkit
 
 Phases, one line each; any failed check raises and the script exits non-zero:
-  (a) build the CUDA recurrence kernel from csrc/ with nvcc; print the card's
-      name and power limit;
-  (b) kernel vs plain torch recurrence on the same card-computed FIR output:
-      the default config (230.4 ksps QPSK, block_len 8192), 128 simulated
-      streams (carriers +50..+600 Hz, SNR 12-25 dB, DC offsets, one noise-only
-      stream), 2 chained blocks, every output and carry leaf bitwise; then
-      streams 0-1 of block 0 against the numpy oracle; kernel and plain times
-      per block at B = 128 and B = 1;
-  (c) the fleet width: 128 streams x 16 chained blocks through
+  (a) build the CUDA recurrence kernels (QPSK and OQPSK, one source) from
+      csrc/ with nvcc; print the card's name and power limit;
+  (b) QPSK kernel vs plain torch recurrence on the same card-computed FIR
+      output: the default config (230.4 ksps QPSK, block_len 8192), 128
+      simulated streams (carriers +50..+600 Hz, SNR 12-25 dB, DC offsets, one
+      noise-only stream), 2 chained blocks, every output and carry leaf
+      bitwise; then streams 0-1 against the numpy oracle; kernel and plain
+      times per block at B = 128 and B = 1;
+  (b-oq) the same for the OQPSK kernel at the OQPSK config (80 ksym/s
+      interleaved, block_len 8192), with (S+1)-row outputs: the pre-fire must
+      run on some stream (a symbol split across the block boundary), and
+      the first such stream is checked against the oracle too;
+  (c) the QPSK fleet width: 128 streams x 16 chained blocks through
       make_batch_demod on the card: no flags, symbol counts within 1 % of
       nominal, Msamples/s;
-  (d) the CLI main path: a 60 s, 16-bit, 230.4 ksps QPSK WAV (300 Hz carrier,
+  (d) the QPSK CLI: a 60 s, 16-bit, 230.4 ksps QPSK WAV (300 Hz carrier,
       20 dB) through `cli.main([... "-B", "-q", "-o", out, wav])` on the card:
       exit 0, at least one kernel launch per block, 72000*60 symbols within
-      1 %, carrier locked, mean |soft byte| in 55-75.
-The kernel's launch count and the stream driver's count of blocks replayed
-by the numpy oracle on the host are reset just before (c) and read after
-(d): the launches are the main path's, and the replay count must be 0, so
-that every block of (c) and (d) came from the card. The line before the
-last is the kernels' JSON record, the last line is {"ok": true, ...}.
+      1 %, carrier locked, mean |soft byte| in 55-75;
+  (c-oq), (d-oq) the same for OQPSK (`-m oqpsk -r 80k`; 80000*60 symbols,
+      mean |soft byte| in 60-79: the JAX CLI on the CPU reads 69.55 on the
+      first 6 s of the same WAV).
+Each main path, QPSK ((c) and (d)) and OQPSK ((c-oq) and (d-oq)), is driven
+with both kernels' launch counts and StreamDemodulator's count of blocks
+replayed by the numpy oracle on the host set to 0 just before it and read
+just after: the path's own kernel must have launched, the other kernel not
+at all, and the replay count must be 0, so that every block came from the
+card. The line before the last is the kernels' JSON record, the last line
+is {"ok": true, ...}.
 
 Imports nothing of JAX or of the JAX package. Exits 1 without a CUDA card.
 """
@@ -48,7 +57,17 @@ CHAIN = 16
 CLI_SECONDS = 60
 PIECE_S = 3          # the CLI fixture is a PIECE_S-second sim piece, tiled
 KERNEL_SOURCE = "meteor_demod_tpu_torch/csrc/block_demod.cu"
-KERNEL_REPLACES = "meteor_demod_tpu/kernels/block_demod.py:1382"
+# Per mode: the kernel's name, the TPU kernel it replaces, the symbol rate,
+# the CLI's mode flags and the band of mean |soft byte| the CLI must give.
+MODES = {
+    "qpsk": dict(name="block_demod", symrate=72000.0, cli=[],
+                 replaces="meteor_demod_tpu/kernels/block_demod.py:1382",
+                 soft=(55.0, 75.0)),
+    "oqpsk": dict(name="block_demod_oqpsk", symrate=80000.0,
+                  cli=["-m", "oqpsk", "-r", "80k"],
+                  replaces="meteor_demod_tpu/kernels/block_demod.py:427",
+                  soft=(60.0, 79.0)),
+}
 
 
 def say(msg: str) -> None:
@@ -60,15 +79,16 @@ def check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def fleet_iq(n_streams: int, n_samples: int, seed: int,
+def fleet_iq(cfg, n_streams: int, n_samples: int, seed: int,
              device) -> torch.Tensor:
-    """(n_streams, n_samples, 2) float32 IQ on `device`: sim QPSK baseband
-    (4 seeded symbol sequences) given per-stream carriers +50..+600 Hz,
-    phases, amplitudes, SNR 12-25 dB and DC offsets on the card; the last
-    stream is noise only."""
+    """(n_streams, n_samples, 2) float32 IQ on `device`: sim (O)QPSK baseband
+    at cfg's symbol rate (4 seeded symbol sequences) given per-stream
+    carriers +50..+600 Hz, phases, amplitudes, SNR 12-25 dB and DC offsets
+    on the card; the last stream is noise only."""
     from meteor_demod_tpu_torch.sim import synth_psk
-    bases = [synth_psk(n_samples // 3 + 64, FS, carrier_hz=0.0, amplitude=1.0,
-                       snr_db=300.0, seed=seed + k)[0][:n_samples]
+    bases = [synth_psk(int(n_samples * cfg.symrate / FS) + 64, FS,
+                       symrate=cfg.symrate, oqpsk=cfg.oqpsk, carrier_hz=0.0,
+                       amplitude=1.0, snr_db=300.0, seed=seed + k)[0][:n_samples]
              for k in range(4)]
     base = torch.tensor(np.stack(bases), device=device,
                         dtype=torch.complex128)
@@ -121,7 +141,7 @@ def max_abs_diff(a: dict, b: dict) -> float:
                for k in a)
 
 
-def phase_b(cfg, dev) -> dict:
+def phase_b(cfg, dev, tag: str) -> dict:
     from meteor_demod_tpu_torch.demod import scalar
     from meteor_demod_tpu_torch.demod.state import batch_carry
     from meteor_demod_tpu_torch.dsp.fir import (f32_to_iq, make_fir_banks,
@@ -129,49 +149,63 @@ def phase_b(cfg, dev) -> dict:
     from meteor_demod_tpu_torch.kernels.block_demod import (block_demod,
                                                             block_demod_torch)
     L = cfg.block_len
-    x = fleet_iq(N_FLEET, 2 * L, SEED, dev)
+    x = fleet_iq(cfg, N_FLEET, 2 * L, SEED, dev)
     banks = torch.as_tensor(make_fir_banks(cfg), device=dev)
     kc = pc = batch_carry(cfg, N_FLEET, dev)
     tail = kc.fir_tail
     err = 0.0
-    fts = []
+    fts, outs, split = [], [], None
     for i in range(2):
         Ft, tail = polyphase_fir_block(x[:, i * L:(i + 1) * L], tail, banks)
         fts.append(Ft)
+        slot_in = kc.slot.cpu().numpy()
         kc, ko = block_demod(cfg, kc, Ft)
         pc, po = block_demod_torch(cfg, pc, Ft)
         torch.cuda.synchronize()
         a, b = outputs(ko), outputs(po)
         ka, pa = leaves(kc), leaves(pc)
         for k in a:
-            check(np.array_equal(a[k], b[k]), f"(b) block {i}: kernel {k} "
+            check(np.array_equal(a[k], b[k]), f"({tag}) block {i}: kernel {k} "
                   f"differs from plain, max {np.abs(a[k] - b[k]).max()}")
         for k in ka:
             check(np.array_equal(ka[k], pa[k]),
-                  f"(b) block {i}: kernel carry {k} differs from plain")
+                  f"({tag}) block {i}: kernel carry {k} differs from plain")
         err = max(err, max_abs_diff(a, b))
-        check(int(a["valid"].sum()) > N_FLEET * 2500, "(b) too few symbols")
-        if i == 0:
-            first = (a, x[:, :L].cpu().numpy(), Ft.cpu().numpy())
-    # Streams 0-1, block 0, against the numpy oracle on the same Ft.
-    a, xb, Ftn = first
+        nominal = L * cfg.symrate / FS
+        check(int(a["valid"].sum()) > N_FLEET * 0.95 * nominal,
+              f"({tag}) too few symbols")
+        if cfg.oqpsk and i == 1:
+            # The pre-fire: row 0 holds a symbol exactly where a symbol was
+            # split across the block boundary (entry slot 2).
+            check((slot_in == 2).any(), f"({tag}) no stream entered block 1 "
+                  f"with a split symbol: the pre-fire never ran")
+            check(np.array_equal(a["valid"][:, 0], (slot_in == 2)),
+                  f"({tag}) pre-fire rows differ from the split streams")
+            split = int(np.argmax(slot_in == 2))
+        outs.append(a)
+    # Streams 0-1 (and OQPSK's first split stream), both blocks, against the
+    # numpy oracle on the same Ft.
+    xn = x.cpu().numpy()
     oracle_err = 0.0
-    for b in range(2):
-        F = f32_to_iq(np.ascontiguousarray(Ftn[:, :, b])).reshape(
-            L, cfg.interp)
-        syms, _ = scalar.demod_stream_np(
-            cfg, f32_to_iq(np.ascontiguousarray(xb[b])),
-            scalar.initial_state(cfg), F=F)
-        m = a["valid"][b].astype(bool)
-        check(len(syms) == m.sum(), f"(b) oracle count {len(syms)} != "
-              f"kernel {m.sum()} (stream {b})")
-        check(np.array_equal(syms["locked_once"], a["locked_once"][b][m]),
-              f"(b) oracle locked_once differs (stream {b})")
-        for k, ok in (("re", "sym_re"), ("im", "sym_im")):
-            np.testing.assert_allclose(a[ok][b][m], syms[k], rtol=5e-4,
-                                       atol=1e-3)
-            oracle_err = max(oracle_err, float(np.max(np.abs(
-                a[ok][b][m].astype(np.float64) - syms[k]))))
+    for b in sorted({0, 1} | ({split} if split is not None else set())):
+        st = scalar.initial_state(cfg)
+        for i in range(2):
+            a = outs[i]
+            F = f32_to_iq(np.ascontiguousarray(
+                fts[i][:, :, b].cpu().numpy())).reshape(L, cfg.interp)
+            syms, st = scalar.demod_stream_np(
+                cfg, f32_to_iq(np.ascontiguousarray(xn[b, i * L:(i + 1) * L])),
+                st, F=F)
+            m = a["valid"][b].astype(bool)
+            check(len(syms) == m.sum(), f"({tag}) oracle count {len(syms)} "
+                  f"!= kernel {m.sum()} (stream {b}, block {i})")
+            check(np.array_equal(syms["locked_once"], a["locked_once"][b][m]),
+                  f"({tag}) oracle locked_once differs (stream {b})")
+            for k, ok in (("re", "sym_re"), ("im", "sym_im")):
+                np.testing.assert_allclose(a[ok][b][m], syms[k], rtol=5e-4,
+                                           atol=1e-3)
+                oracle_err = max(oracle_err, float(np.max(np.abs(
+                    a[ok][b][m].astype(np.float64) - syms[k]))))
     # Times per block, from the same entry carry and FIR output.
     c0 = batch_carry(cfg, N_FLEET, dev)
     c1 = batch_carry(cfg, 1, dev)
@@ -181,19 +215,20 @@ def phase_b(cfg, dev) -> dict:
         plain_ms=cuda_ms(lambda: block_demod_torch(cfg, c0, fts[0]), 1),
         ms_b1=cuda_ms(lambda: block_demod(cfg, c1, ft1), 20),
         plain_ms_b1=cuda_ms(lambda: block_demod_torch(cfg, c1, ft1), 1))
-    say(f"(b) kernel == plain bitwise over {N_FLEET} streams x 2 blocks "
-        f"(max_abs_err {err}); oracle streams 0-1 block 0: decisions "
-        f"bitwise, max |value diff| {oracle_err}; per block: kernel "
+    streams = "0-1" if split is None or split < 2 else f"0-1 and {split}"
+    say(f"({tag}) kernel == plain bitwise over {N_FLEET} streams x 2 blocks "
+        f"(max_abs_err {err}); oracle streams {streams}: decisions bitwise, "
+        f"max |value diff| {oracle_err}; per block: kernel "
         f"{t['ms']:.3f} ms vs plain {t['plain_ms']:.1f} ms at B=128, kernel "
         f"{t['ms_b1']:.3f} ms vs plain {t['plain_ms_b1']:.1f} ms at B=1")
     return dict(max_abs_err=err, **t)
 
 
-def phase_c(cfg, dev, card: str) -> None:
+def phase_c(cfg, dev, card: str, tag: str) -> None:
     from meteor_demod_tpu_torch.demod.backend import make_batch_demod
     from meteor_demod_tpu_torch.demod.state import batch_carry
     L = cfg.block_len
-    x = fleet_iq(N_FLEET, CHAIN * L, SEED + 1, dev)
+    x = fleet_iq(cfg, N_FLEET, CHAIN * L, SEED + 1, dev)
     fn = make_batch_demod(cfg, N_FLEET, device=dev)
     fn(batch_carry(cfg, N_FLEET, dev), x[:, :L])          # warm-up
     torch.cuda.synchronize()
@@ -208,59 +243,85 @@ def phase_c(cfg, dev, card: str) -> None:
     flags = carry.flags.cpu().numpy()
     counts = counts.cpu().numpy()
     nominal = CHAIN * L * cfg.symrate / FS
-    check(not flags.any(), f"(c) flags set on streams {np.nonzero(flags)[0]}")
+    check(not flags.any(),
+          f"({tag}) flags set on streams {np.nonzero(flags)[0]}")
     check(np.all(np.abs(counts - nominal) <= 0.01 * nominal),
-          f"(c) symbol counts {counts.min()}..{counts.max()} not within 1 % "
+          f"({tag}) symbol counts {counts.min()}..{counts.max()} not within 1 % "
           f"of {nominal:.0f}")
     locked = int(carry.locked.sum())
     msps = N_FLEET * CHAIN * L / secs / 1e6
-    say(f"(c) fleet {N_FLEET} x {CHAIN} blocks ({N_FLEET * CHAIN * L / 1e6:.1f}"
+    say(f"({tag}) fleet {N_FLEET} x {CHAIN} blocks ({N_FLEET * CHAIN * L / 1e6:.1f}"
         f" Msamples): flags 0, symbols/stream {counts.min()}..{counts.max()} "
         f"(nominal {nominal:.0f}), {locked}/{N_FLEET} locked, {secs:.3f} s, "
         f"{msps:.1f} Msamples/s on {card}")
 
 
-def phase_d(cfg, dev, card: str) -> int:
+def phase_d(cfg, dev, card: str, tag: str) -> None:
     from meteor_demod_tpu_torch import cli
     from meteor_demod_tpu_torch.constants import RING_SYMBOLS
     from meteor_demod_tpu_torch.demod.pipeline import StreamDemodulator
-    from meteor_demod_tpu_torch.kernels.block_demod import block_demod
     from meteor_demod_tpu_torch.sim import synth_psk, write_wav
+    mode = MODES["oqpsk" if cfg.oqpsk else "qpsk"]
     # A 3 s piece tiled to 60 s: 3 s holds whole symbols, whole samples and
     # 900 whole carrier cycles, so the carrier and the symbol clock run on
     # across the joins (a pass is ~10 minutes; 60 s keeps the smoke short).
-    x, _ = synth_psk(72000 * PIECE_S, FS, carrier_hz=300.0, amplitude=6000.0,
+    x, _ = synth_psk(int(cfg.symrate) * PIECE_S, FS, symrate=cfg.symrate,
+                     oqpsk=cfg.oqpsk, carrier_hz=300.0, amplitude=6000.0,
                      snr_db=20.0, seed=SEED)
     x = np.tile(x, CLI_SECONDS // PIECE_S)
     with tempfile.TemporaryDirectory() as tmp:
         wav, out = os.path.join(tmp, "pass.wav"), os.path.join(tmp, "pass.s")
         write_wav(wav, x, FS, 16)
         blocks = len(x) // cfg.block_len
-        before = block_demod.launches
+        before = kernel(mode).launches
         os.environ.pop("METEOR_DEMOD_PLATFORM", None)        # the card
         t0 = time.perf_counter()
-        rc = cli.main(["meteor_demod_tpu_torch", "-B", "-q", "-o", out, wav])
+        rc = cli.main(["meteor_demod_tpu_torch", "-B", "-q", *mode["cli"],
+                       "-o", out, wav])
         secs = time.perf_counter() - t0
         soft = np.fromfile(out, dtype=np.int8)
-    launched = block_demod.launches - before
-    check(rc == 0, f"(d) CLI exit {rc}")
-    check(launched >= blocks, f"(d) {launched} kernel launches for {blocks} "
-          f"blocks")
+    launched = kernel(mode).launches - before
+    check(rc == 0, f"({tag}) CLI exit {rc}")
+    check(launched >= blocks, f"({tag}) {launched} kernel launches for "
+          f"{blocks} blocks")
     replayed = StreamDemodulator.replayed_blocks
-    check(replayed == 0, f"(d) {replayed} flagged blocks were recomputed by "
-          f"the numpy oracle on the host")
+    check(replayed == 0, f"({tag}) {replayed} flagged blocks were recomputed "
+          f"by the numpy oracle on the host")
     n_sym = len(soft) // 2
-    nominal = 72000 * CLI_SECONDS
+    nominal = int(cfg.symrate) * CLI_SECONDS
     check(abs(n_sym - nominal) <= 0.01 * nominal,
-          f"(d) {n_sym} symbols, expected {nominal} within 1 %")
-    check(len(soft) >= 4 * RING_SYMBOLS, "(d) carrier never locked")
+          f"({tag}) {n_sym} symbols, expected {nominal} within 1 %")
+    check(len(soft) >= 4 * RING_SYMBOLS, f"({tag}) carrier never locked")
     mean_soft = float(np.mean(np.abs(soft.astype(np.float32))))
-    check(55.0 <= mean_soft <= 75.0, f"(d) mean |soft byte| {mean_soft}")
-    say(f"(d) CLI -B on {CLI_SECONDS} s of 16-bit 230.4 ksps QPSK: exit 0, "
-        f"{n_sym} symbols (nominal {nominal}), locked, mean |soft| "
-        f"{mean_soft:.1f}, {launched} kernel launches for {blocks} blocks, "
-        f"{replayed} blocks replayed on the host, {secs:.2f} s wall on {card}")
-    return launched
+    lo, hi = mode["soft"]
+    check(lo <= mean_soft <= hi, f"({tag}) mean |soft byte| {mean_soft}")
+    say(f"({tag}) CLI -B {' '.join(mode['cli'])} on {CLI_SECONDS} s of 16-bit "
+        f"230.4 ksps {'OQPSK' if cfg.oqpsk else 'QPSK'}: exit 0, {n_sym} "
+        f"symbols (nominal {nominal}), locked, mean |soft| {mean_soft:.1f}, "
+        f"{launched} kernel launches for {blocks} blocks, {replayed} blocks "
+        f"replayed on the host, {secs:.2f} s wall on {card}")
+
+
+def kernel(mode: dict):
+    """The wrapper of mode's kernel; its .launches is the kernel's count."""
+    from meteor_demod_tpu_torch.kernels import block_demod as kb
+    return getattr(kb, mode["name"])
+
+
+def main_path(cfg, dev, smi: str, mode: dict, other: dict) -> int:
+    """Drive one main path (fleet, then CLI) with the launch and replay
+    counts set to 0 just before it; return its kernel's launches."""
+    from meteor_demod_tpu_torch.demod.pipeline import StreamDemodulator
+    suffix = "-oq" if cfg.oqpsk else ""
+    kernel(mode).launches = kernel(other).launches = 0
+    StreamDemodulator.replayed_blocks = 0
+    phase_c(cfg, dev, smi, "c" + suffix)
+    phase_d(cfg, dev, smi, "d" + suffix)
+    launches = kernel(mode).launches
+    check(launches > 0, f"the {mode['name']} path never launched its kernel")
+    check(kernel(other).launches == 0,
+          f"the {mode['name']} path launched {other['name']}")
+    return launches
 
 
 def main() -> int:
@@ -270,9 +331,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from meteor_demod_tpu_torch.config import DemodConfig
-    from meteor_demod_tpu_torch.demod.pipeline import StreamDemodulator
     from meteor_demod_tpu_torch.kernels import _build
-    from meteor_demod_tpu_torch.kernels.block_demod import block_demod
 
     dev = torch.device("cuda")
     card = torch.cuda.get_device_name(0)
@@ -286,21 +345,19 @@ def main() -> int:
         f"{time.perf_counter() - t0:.2f} s ({'fresh' if fresh else 'cached'}"
         f"); torch {torch.__version__}, CUDA {torch.version.cuda}; {card}")
 
-    cfg = DemodConfig(samplerate=FS)
-    rec = phase_b(cfg, dev)
-
-    block_demod.launches = 0                   # the main path starts here
-    StreamDemodulator.replayed_blocks = 0
-    phase_c(cfg, dev, smi)
-    phase_d(cfg, dev, smi)
-    launches = block_demod.launches
-    check(launches > 0, "the main path never launched block_demod")
+    cfgs = dict(qpsk=DemodConfig(samplerate=FS),
+                oqpsk=DemodConfig(samplerate=FS, symrate=80000.0, oqpsk=True))
+    rec = dict(qpsk=phase_b(cfgs["qpsk"], dev, "b"),
+               oqpsk=phase_b(cfgs["oqpsk"], dev, "b-oq"))
+    for m, other in (("qpsk", "oqpsk"), ("oqpsk", "qpsk")):
+        rec[m]["launches"] = main_path(cfgs[m], dev, smi, MODES[m],
+                                       MODES[other])
 
     say(json.dumps({"kernels": [{
-        "name": "block_demod", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-        "plain_ms": rec["plain_ms"]}]}))
+        "name": MODES[m]["name"], "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": MODES[m]["replaces"], "launches": rec[m]["launches"],
+        "max_abs_err": rec[m]["max_abs_err"], "ms": rec[m]["ms"],
+        "plain_ms": rec[m]["plain_ms"]} for m in ("qpsk", "oqpsk")]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

@@ -14,7 +14,7 @@ METEOR_DEMOD_PLATFORM=cpu runs it on the CPU instead. Without a card and
 without that setting the CLI raises: it never falls back to the CPU.
 
 Not ported yet (each exits 1 with one line on stderr): -T/--turbo,
---checkpoint, -m oqpsk and the TUI (non-batch mode).
+--checkpoint and the TUI (non-batch mode).
 """
 
 from __future__ import annotations
@@ -75,8 +75,8 @@ Extensions (not in the reference):
                            the kick for exact reference acquisition
                            behavior
 
-Not ported yet (exit 1): -T/--turbo, --checkpoint, -m oqpsk, and the TUI
-(run with -B, --stdout or stdin input).
+Not ported yet (exit 1): -T/--turbo, --checkpoint, and the TUI (run with
+-B, --stdout or stdin input).
 
 Device: the CUDA card; METEOR_DEMOD_PLATFORM=cpu runs on the CPU.
 """
@@ -276,8 +276,6 @@ def _not_ported(opts: Options) -> str | None:
         return "-T/--turbo is not ported to meteor_demod_tpu_torch yet"
     if opts.checkpoint_path is not None:
         return "--checkpoint is not ported to meteor_demod_tpu_torch yet"
-    if opts.oqpsk:
-        return "-m oqpsk is not ported to meteor_demod_tpu_torch yet"
     if not opts.batch and opts.input_path != "-":
         return ("the TUI is not ported to meteor_demod_tpu_torch yet; "
                 "run with -B")

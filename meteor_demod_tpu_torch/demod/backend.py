@@ -4,7 +4,9 @@ Contract (the JAX package's demod/backend.py):
   demod(carry, x) -> (carry', BlockOutput)
 with a leading (batch,) axis on every carry leaf and x of shape
 (batch, block_len, 2) float32, all on one device. BlockOutput leaves are
-(batch, steps_per_block).
+(batch, steps_per_block) for QPSK and (batch, steps_per_block + 1) for OQPSK,
+whose row 0 is the block-entry completion pre-fire
+(kernels/block_demod.py).
 """
 
 from __future__ import annotations
@@ -24,13 +26,12 @@ def make_batch_demod(cfg: DemodConfig, batch: int, device="cpu",
                      backend: str = "auto") -> Callable:
     """Batched block demodulator for `batch` streams on `device`.
 
-    backend: "auto" runs the CUDA kernel for a CUDA device and the plain
-    torch recurrence for a CPU device; "cuda" requires a CUDA device;
-    "torch" runs the plain recurrence on any device (the reference the
-    kernel is checked against). A single stream is batch=1."""
+    backend: "auto" runs the CUDA kernel (QPSK or OQPSK, by cfg.oqpsk) for
+    a CUDA device and the plain torch recurrence for a CPU device; "cuda"
+    requires a CUDA device; "torch" runs the plain recurrence on any device
+    (the reference the kernel is checked against). A single stream is
+    batch=1."""
     cfg.validate()
-    if cfg.oqpsk:
-        raise NotImplementedError("OQPSK is not ported yet")
     device = torch.device(device)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")

@@ -18,7 +18,12 @@ import torch
 
 # Flag bits: any nonzero flag means "this block must be recomputed by the
 # exact scalar fallback" — a should-never-happen safety net.
-FLAG_WINDOW_MISS = 1   # a gate fire landed outside the candidate window (TPU only)
+# FLAG_WINDOW_MISS: on the TPU, a gate fire landed outside the candidate
+# window. The port reads every fired tick directly, so here it marks only
+# the two OQPSK events that break the pairing's alignment: a deferred Q fire
+# (transaction B found no fire within K ticks with more left; JAX scan.py
+# l.262, l.379) and a deferred block-entry pre-fire (scan.py l.456-462).
+FLAG_WINDOW_MISS = 1
 FLAG_UNCONSUMED = 2    # steps exhausted before the block's ticks were
 
 
@@ -53,7 +58,8 @@ CARRY_FIELDS = tuple(f.name for f in dataclasses.fields(DemodCarry))
 
 @dataclasses.dataclass
 class BlockOutput:
-    """Per-step outputs of one block, shapes (B, S)."""
+    """Per-step outputs of one block, shapes (B, S) for QPSK and (B, S+1)
+    for OQPSK (row 0 the block-entry pre-fire)."""
     sym_re: torch.Tensor       # f32 soft symbol I (valid only where valid)
     sym_im: torch.Tensor       # f32 soft symbol Q
     valid: torch.Tensor        # int32 0/1, 1 where a symbol was produced

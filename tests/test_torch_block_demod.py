@@ -214,3 +214,39 @@ def test_backend_matches_jax_scan(fx):
         _assert_decisions_and_values(got, blk["scan"], f"backend block {i}")
         np.testing.assert_allclose(got[0]["fir_tail"],
                                    blk["scan"][0]["fir_tail"], rtol=0, atol=0)
+
+
+# The other BASELINE.json configurations: hi-fi (a larger K), PLL bandwidth
+# 0.5 and 2, and a 1 kHz carrier deviation limit (CLI -d 1k, converted to
+# rad/symbol as the CLI does).
+VARIANTS = {
+    "hifi": dict(rrc_order=64, interp=10),
+    "pll_bw_0.5": dict(pll_bw=0.5),
+    "pll_bw_2": dict(pll_bw=2.0),
+    "freq_max_1k": dict(freq_max=float(1000.0 * 2 * np.pi / 72000.0)),
+}
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_config_variant_plain_matches_jax_scan(name):
+    """Each block from the JAX scan's carry, on the JAX FIR's output, from
+    a cold start (AGC and acquisition transient): the contract above."""
+    kw = dict(samplerate=230400, block_len=L, **VARIANTS[name])
+    jcfg, cfg = JaxConfig(**kw), DemodConfig(**kw)
+    assert cfg.gate_candidates == jcfg.gate_candidates
+    xf = iq_to_f32(_streams(N_BLOCKS * L))
+    scan_fn = jax.jit(jax.vmap(make_block_demod(jcfg)))
+    banks = jax_banks(jcfg)
+    carry = jax_batch_carry(jcfg, B)
+    for i in range(N_BLOCKS):
+        xb = xf[:, i * L:(i + 1) * L]
+        Ft, _ = polyphase_fir_block_tmajor(
+            jnp.asarray(xb.transpose(1, 0, 2)),
+            carry.fir_tail.transpose(1, 0, 2), banks)
+        c, o = block_demod_torch(cfg, carry_from_numpy(
+            jax_carry_to_numpy(carry)), torch.tensor(np.asarray(Ft)))
+        carry, so = scan_fn(carry, jnp.asarray(xb))
+        _assert_decisions_and_values(
+            (carry_to_numpy(c), {k: getattr(o, k).numpy() for k in _OUT}),
+            (jax_carry_to_numpy(carry), {k: np.asarray(getattr(so, k))
+                                         for k in _OUT}), f"{name} block {i}")

@@ -1,5 +1,6 @@
-"""The CUDA recurrence kernel (meteor_demod_tpu_torch/csrc/block_demod.cu)
-against its plain torch version, and the contracts of its wrapper and build.
+"""The CUDA recurrence kernels (meteor_demod_tpu_torch/csrc/block_demod.cu:
+QPSK and OQPSK) against their plain torch versions, and the contracts of
+their wrappers and build.
 
 Tests marked `gpu` need a CUDA card and nvcc, and skip without them. This
 file imports neither jax nor meteor_demod_tpu, so it runs on the card's
@@ -26,12 +27,34 @@ from meteor_demod_tpu_torch.dsp.fir import (iq_to_f32, make_fir_banks,
                                             polyphase_fir_block)
 from meteor_demod_tpu_torch.kernels import _build
 from meteor_demod_tpu_torch.kernels.block_demod import (block_demod,
+                                                        block_demod_oqpsk,
                                                         block_demod_torch)
 from meteor_demod_tpu_torch.sim import synth_psk
 
 L = 1024
 CFG = DemodConfig(samplerate=230400, block_len=L)
+OQ_CFG = DemodConfig(samplerate=230400, symrate=80000.0, oqpsk=True,
+                     block_len=L)
 _OUT = ("sym_re", "sym_im", "valid", "locked_once")
+# The other BASELINE.json configurations: hi-fi (a larger K), PLL bandwidth
+# 0.5 and 2, and a 1 kHz carrier deviation limit (CLI -d 1k).
+VARIANTS = {
+    "hifi": dict(rrc_order=64, interp=10),
+    "pll_bw_0.5": dict(pll_bw=0.5),
+    "pll_bw_2": dict(pll_bw=2.0),
+    "freq_max_1k": dict(freq_max=1000.0),
+}
+
+
+def variant_cfg(mode: str, name: str) -> DemodConfig:
+    """The variant `name` of the QPSK (72 ksym/s) or OQPSK (80 ksym/s)
+    config; freq_max is given in Hz and converted as the CLI does."""
+    symrate = 80000.0 if mode == "oqpsk" else 72000.0
+    kw = dict(VARIANTS[name])
+    if "freq_max" in kw:
+        kw["freq_max"] = kw["freq_max"] * 2 * np.pi / symrate
+    return DemodConfig(samplerate=230400, symrate=symrate,
+                       oqpsk=mode == "oqpsk", block_len=L, **kw)
 
 
 @pytest.fixture
@@ -42,11 +65,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _iq(batch: int, n: int) -> np.ndarray:
-    """(batch, n, 2) float32: QPSK streams with carriers 60..+, SNR 15-24
-    dB and DC offsets; the last stream is noise only."""
-    xs = [synth_psk(n // 3 + 64, 230400, carrier_hz=60.0 + 7 * b,
-                    amplitude=6000.0, snr_db=15.0 + b % 10, seed=b % 16,
+def _iq(batch: int, n: int, cfg: DemodConfig = CFG) -> np.ndarray:
+    """(batch, n, 2) float32: (O)QPSK streams at cfg's symbol rate with
+    carriers 60..+, SNR 15-24 dB and DC offsets; the last stream is noise
+    only."""
+    xs = [synth_psk(int(n * cfg.symrate / 230400) + 64, 230400,
+                    symrate=cfg.symrate, oqpsk=cfg.oqpsk,
+                    carrier_hz=60.0 + 7 * b, amplitude=6000.0,
+                    snr_db=15.0 + b % 10, seed=b % 16,
                     dc_offset=20 - 5j)[0][:n] for b in range(batch)]
     rng = np.random.default_rng(batch)
     xs[-1] = (1500 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
@@ -82,6 +108,66 @@ def test_kernel_matches_plain_bitwise(cuda_device, batch):
             np.testing.assert_array_equal(kcn[k], pcn[k], err_msg=k)
 
 
+def _kernel_vs_plain(cfg, x, n_blocks):
+    """n_blocks chained blocks of x on the card, kernel and plain each
+    carrying their own carry: every output and carry leaf bitwise, one
+    launch per block on cfg's kernel and none on the other. Returns the
+    entry slots and the kernel's outputs of each block."""
+    dev = x.device
+    banks = torch.as_tensor(make_fir_banks(cfg), device=dev)
+    B = x.shape[0]
+    kc = pc = batch_carry(cfg, B, dev)
+    tail = kc.fir_tail
+    mine, other = ((block_demod_oqpsk, block_demod) if cfg.oqpsk
+                   else (block_demod, block_demod_oqpsk))
+    seen = []
+    for i in range(n_blocks):
+        Ft, tail = polyphase_fir_block(
+            x[:, i * cfg.block_len:(i + 1) * cfg.block_len], tail, banks)
+        before = (mine.launches, other.launches)
+        slot_in = kc.slot.cpu().numpy()
+        kc, ko = block_demod(cfg, kc, Ft)
+        assert (mine.launches, other.launches) == (before[0] + 1, before[1])
+        pc, po = block_demod_torch(cfg, pc, Ft)
+        (kcn, kon), (pcn, pon) = _host(kc, ko), _host(pc, po)
+        rows = cfg.steps_per_block + (1 if cfg.oqpsk else 0)
+        assert kon["valid"].shape == (B, rows)
+        assert kon["valid"].sum() > 0.9 * B * cfg.block_len * (
+            cfg.symrate / 230400)
+        for k in _OUT:
+            np.testing.assert_array_equal(kon[k], pon[k], err_msg=k)
+        for k in kcn:
+            np.testing.assert_array_equal(kcn[k], pcn[k], err_msg=k)
+        seen.append((slot_in, kon))
+    return seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 4, 130])
+def test_oqpsk_kernel_matches_plain_bitwise(cuda_device, batch):
+    """OQPSK: two chained blocks, every output row (the pre-fire's row 0
+    included) and carry leaf bitwise; one launch of the OQPSK kernel per
+    block. At 130 streams the pre-fire runs: some stream enters block 1
+    with a split symbol, and its row 0 holds a symbol."""
+    x = torch.tensor(_iq(batch, 2 * L, OQ_CFG), device=cuda_device)
+    seen = _kernel_vs_plain(OQ_CFG, x, 2)
+    if batch == 130:
+        slot_in, out = seen[1]
+        assert (slot_in == 2).any()
+        np.testing.assert_array_equal(out["valid"][:, 0],
+                                      (slot_in == 2).astype(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(VARIANTS))
+@pytest.mark.parametrize("mode", ["qpsk", "oqpsk"])
+def test_config_variants_kernel_matches_plain_bitwise(cuda_device, mode,
+                                                      name):
+    cfg = variant_cfg(mode, name)
+    x = torch.tensor(_iq(6, 2 * L, cfg), device=cuda_device)
+    _kernel_vs_plain(cfg, x, 2)
+
+
 @pytest.mark.gpu
 def test_backend_auto_launches_kernel_on_card(cuda_device):
     x = torch.tensor(_iq(4, L), device=cuda_device)
@@ -97,6 +183,44 @@ def test_backend_auto_launches_kernel_on_card(cuda_device):
         np.testing.assert_array_equal(kon[k], pon[k], err_msg=k)
     for k in kcn:
         np.testing.assert_array_equal(kcn[k], pcn[k], err_msg=k)
+
+
+@pytest.mark.gpu
+def test_backend_auto_launches_oqpsk_kernel_on_card(cuda_device):
+    """make_batch_demod on the card picks the OQPSK kernel for an OQPSK
+    config; backend='torch' launches nothing and agrees bitwise."""
+    x = torch.tensor(_iq(4, L, OQ_CFG), device=cuda_device)
+    before = (block_demod.launches, block_demod_oqpsk.launches)
+    kc, ko = make_batch_demod(OQ_CFG, 4, cuda_device)(
+        batch_carry(OQ_CFG, 4, cuda_device), x)
+    assert (block_demod.launches, block_demod_oqpsk.launches) == (
+        before[0], before[1] + 1)
+    pc, po = make_batch_demod(OQ_CFG, 4, cuda_device, backend="torch")(
+        batch_carry(OQ_CFG, 4, cuda_device), x)
+    assert block_demod_oqpsk.launches == before[1] + 1
+    (kcn, kon), (pcn, pon) = _host(kc, ko), _host(pc, po)
+    for k in _OUT:
+        np.testing.assert_array_equal(kon[k], pon[k], err_msg=k)
+    for k in kcn:
+        np.testing.assert_array_equal(kcn[k], pcn[k], err_msg=k)
+
+
+@pytest.mark.gpu
+def test_oqpsk_stream_demodulator_card_matches_cpu(cuda_device):
+    """OQPSK StreamDemodulator on the card against the CPU's: same symbols
+    and lock history; values within the FIR's float32 rounding."""
+    x = _iq(1, 12 * L + 777, OQ_CFG)[0].view(np.complex64)[:, 0]
+    ref = StreamDemodulator(OQ_CFG, "cpu")
+    want = np.concatenate([ref.process(x), ref.finish()])
+    before = block_demod_oqpsk.launches
+    d = StreamDemodulator(OQ_CFG, cuda_device)
+    got = np.concatenate([d.process(x), d.finish()])
+    assert block_demod_oqpsk.launches - before >= 12
+    assert d.fallback_blocks == 0 and len(got) == len(want)
+    np.testing.assert_array_equal(got["locked_once"], want["locked_once"])
+    np.testing.assert_allclose(got["re"], want["re"], rtol=5e-4, atol=0.05)
+    np.testing.assert_allclose(got["im"], want["im"], rtol=5e-4, atol=0.05)
+    assert d.pll_locked == ref.pll_locked
 
 
 @pytest.mark.gpu
@@ -144,12 +268,17 @@ def test_backend_selection_errors():
         make_batch_demod(CFG, 1, "cpu", backend="cuda")
     with pytest.raises(ValueError, match="unknown backend"):
         make_batch_demod(CFG, 1, "cpu", backend="pallas")
-    oq = DemodConfig(samplerate=230400, symrate=80000.0, oqpsk=True)
-    with pytest.raises(NotImplementedError):
-        make_batch_demod(oq, 1, "cpu")
-    Ft = torch.zeros((oq.block_ticks, 2, 1))
-    with pytest.raises(NotImplementedError):
-        block_demod_torch(oq, batch_carry(oq, 1), Ft)
+    # OQPSK selects the plain recurrence on the CPU (no launch; (1, S+1)
+    # rows) and the OQPSK kernel on the card
+    # (test_backend_auto_launches_oqpsk_kernel_on_card).
+    before = (block_demod.launches, block_demod_oqpsk.launches)
+    _, out = make_batch_demod(OQ_CFG, 1, "cpu")(
+        batch_carry(OQ_CFG, 1), torch.zeros((1, L, 2)))
+    assert out.valid.shape == (1, OQ_CFG.steps_per_block + 1)
+    assert (block_demod.launches, block_demod_oqpsk.launches) == before
+    with pytest.raises(ValueError, match="no block_demod kernel"):
+        block_demod(OQ_CFG, batch_carry(OQ_CFG, 2, "meta"),
+                    torch.empty((OQ_CFG.block_ticks, 2, 2), device="meta"))
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -265,7 +265,6 @@ def test_cli_output_is_the_oracle_bitwise(fixtures, port_cli):
 @pytest.mark.parametrize("args, msg", [
     (["-B", "-T", "4"], "-T/--turbo"),
     (["-B", "--checkpoint", "c.npz"], "--checkpoint"),
-    (["-B", "-m", "oqpsk"], "-m oqpsk"),
     ([], "the TUI"),
 ])
 def test_cli_refuses_unported(fixtures, args, msg, capsys):
