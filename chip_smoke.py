@@ -12,7 +12,9 @@ Phases, one line each; any failed check raises and the script exits non-zero:
       simulated streams (carriers +50..+600 Hz, SNR 12-25 dB, DC offsets, one
       noise-only stream), 2 chained blocks, every output and carry leaf
       bitwise; then streams 0-1 against the numpy oracle; kernel and plain
-      times per block at B = 128 and B = 1;
+      times per block at B = 128 and B = 1, and the kernel's bound at
+      B = 128 (bytes over the memory rate or operations over the fp32 rate,
+      from this run's count of fires);
   (b-oq) the same for the OQPSK kernel at the OQPSK config (80 ksym/s
       interleaved, block_len 8192), with (S+1)-row outputs: the pre-fire must
       run on some stream (a symbol split across the block boundary), and
@@ -56,6 +58,12 @@ N_FLEET = 128
 CHAIN = 16
 CLI_SECONDS = 60
 PIECE_S = 3          # the CLI fixture is a PIECE_S-second sim piece, tiled
+# The card's published peaks (H100 SXM data sheet) for the kernels' bound.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Float operations of one fire (AGC, mix, M&M, Costas and gate, counted from
+# csrc/block_demod.cu; an OQPSK fire carries half a symbol's loop update).
+OPS_PER_FIRE = 80
 KERNEL_SOURCE = "meteor_demod_tpu_torch/csrc/block_demod.cu"
 # Per mode: the kernel's name, the TPU kernel it replaces, the symbol rate,
 # the CLI's mode flags and the band of mean |soft byte| the CLI must give.
@@ -183,6 +191,13 @@ def phase_b(cfg, dev, tag: str) -> dict:
                   f"({tag}) pre-fire rows differ from the split streams")
             split = int(np.argmax(slot_in == 2))
         outs.append(a)
+        if i == 0:
+            # Fires of block 0, the block the times below are taken on: one
+            # per QPSK symbol; two per OQPSK symbol plus the I half-fire of
+            # a symbol split at the block's end (no pre-fire: block 0 is
+            # entered with no split symbol).
+            fires = int(a["valid"].sum()) * (2 if cfg.oqpsk else 1) + (
+                int((ka["slot"] == 2).sum()) if cfg.oqpsk else 0)
     # Streams 0-1 (and OQPSK's first split stream), both blocks, against the
     # numpy oracle on the same Ft.
     xn = x.cpu().numpy()
@@ -215,12 +230,24 @@ def phase_b(cfg, dev, tag: str) -> dict:
         plain_ms=cuda_ms(lambda: block_demod_torch(cfg, c0, fts[0]), 1),
         ms_b1=cuda_ms(lambda: block_demod(cfg, c1, ft1), 20),
         plain_ms_b1=cuda_ms(lambda: block_demod_torch(cfg, c1, ft1), 1))
+    # The least time the card could take for block 0 at B = 128: the bytes
+    # the function must move (each fired tick's two floats, the four output
+    # arrays and the carry in and out, once each) over the memory rate, or
+    # its float operations over the fp32 rate, whichever is larger.
+    rows = outs[0]["valid"].shape[1]
+    n_bytes = 8 * fires + 4 * 4 * rows * N_FLEET + 2 * 4 * 16 * N_FLEET
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = OPS_PER_FIRE * fires / FP32_OPS_PER_S * 1e3
+    t.update(bound_ms=max(by_bytes, by_ops),
+             bound_by="bytes" if by_bytes >= by_ops else "operations")
     streams = "0-1" if split is None or split < 2 else f"0-1 and {split}"
     say(f"({tag}) kernel == plain bitwise over {N_FLEET} streams x 2 blocks "
         f"(max_abs_err {err}); oracle streams {streams}: decisions bitwise, "
         f"max |value diff| {oracle_err}; per block: kernel "
         f"{t['ms']:.3f} ms vs plain {t['plain_ms']:.1f} ms at B=128, kernel "
-        f"{t['ms_b1']:.3f} ms vs plain {t['plain_ms_b1']:.1f} ms at B=1")
+        f"{t['ms_b1']:.3f} ms vs plain {t['plain_ms_b1']:.1f} ms at B=1; "
+        f"bound at B=128 {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
+        f"({fires} fires, {n_bytes} bytes)")
     return dict(max_abs_err=err, **t)
 
 
@@ -357,7 +384,10 @@ def main() -> int:
         "name": MODES[m]["name"], "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": MODES[m]["replaces"], "launches": rec[m]["launches"],
         "max_abs_err": rec[m]["max_abs_err"], "ms": rec[m]["ms"],
-        "plain_ms": rec[m]["plain_ms"]} for m in ("qpsk", "oqpsk")]}))
+        "plain_ms": rec[m]["plain_ms"], "bound_ms": rec[m]["bound_ms"],
+        "bound_by": rec[m]["bound_by"],
+        # No PyTorch call computes a per-symbol feedback recurrence.
+        "library_ms": None} for m in ("qpsk", "oqpsk")]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card,

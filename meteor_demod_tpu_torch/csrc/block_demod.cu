@@ -13,20 +13,43 @@
 // DMA span or flag for a window miss exists (OQPSK still flags a deferred
 // fire, which breaks the pairing's alignment).
 //
-// Design: one thread per stream, 128 threads per block, ceil(B/128) blocks.
-// The whole carry stays in registers for the block's S steps. Outputs are
-// (rows, B), so neighbouring threads store to neighbouring addresses: S rows
-// for QPSK, S+1 for OQPSK (row 0 the pre-fire).
+// Design: one thread per stream; a thread block is two warps, one that runs
+// 32 streams and one that stages their ticks, so a 128-stream fleet spreads
+// over four SMs and ceil(B/32) blocks fill the card. The whole carry stays
+// in registers for the block's S steps. Outputs are (rows, B), so
+// neighbouring threads store to neighbouring addresses: S rows for QPSK, S+1
+// for OQPSK (row 0 the pre-fire).
 //
-// What bounds it: every step depends on the previous one (timing phase ->
-// fired tick -> AGC -> mix -> M&M/Costas -> next timing phase), a serial
-// chain of about 2.6 k steps per 8192-sample block (2.9 k paired steps of
-// two fires each for OQPSK at 80 ksym/s), and each fire makes one
-// data-dependent load of the fired tick's two floats, scattered across the
-// block's FIR output. So the kernel is bound by latency, not by bytes or
-// operations; a batch of B < 132*128 streams does not even fill the card.
-// Making it fast (more streams per SM, prefetching the next candidate ticks)
-// is later work.
+// What bounds it: latency, not bytes or operations, up to a few thousand
+// streams. Every step depends on the previous one (timing phase -> gate ->
+// fired tick -> AGC -> mix -> M&M/Costas -> next timing phase), about 2.6 k
+// steps per 8192-sample block (2.9 k paired steps of two fires each for
+// OQPSK at 80 ksym/s), and a warp executes in order, so a block costs steps x
+// the clocks of one whole step, whatever the width. At
+// B = 16896 the kernels read all of Ft near the memory rate instead. The
+// design shortens the step three ways (PERF.md has each one's times, and the
+// levers that lost: an fmodf fast path, an unconditional tick read, an
+// inline sqrt, the tanh table in shared memory):
+//  - The gate is O(1): an estimate ceil(diff / t_center) of the fired
+//    candidate, then the gate's own predicate fl(k*tf) >= diff evaluated for
+//    the estimate's neighbours (independent multiplies, no branch chain). The
+//    first k that passes while k-1 fails is the serial search's k because
+//    fl(k*tf) is non-decreasing in k for tf > 0; anything the neighbours
+//    cannot prove runs the serial search itself (gate_search).
+//  - The fired tick comes from shared memory. A warp's streams consume Ft's
+//    rows monotonically, and in the tick-major (T, 2, B) layout the warp's
+//    slice of a row is two runs of up to 128 bytes. The block's second warp
+//    keeps a ring of kRing ticks topped up with cp.async ahead of the slowest
+//    stream (at B = 1 as well: the copying warp is whole whatever the count
+//    of streams), and the streams' warp spends one shared-memory store and
+//    load a step on it: no copy, wait or barrier sits in the chain's
+//    in-order code. A stream whose tick is not staged (it ran
+//    ahead of the copies, or far ahead of the warp's slowest stream) reads
+//    global memory, so the ring decides speed, never the result.
+//  - Work that needs only the carry (the NCO's sine, cosine and phase
+//    advance) comes before the gate, so that it overlaps the gate and the
+//    tick read; the OQPSK Q fire's gain (a sqrt that only the next step
+//    needs) comes after the loop update.
 //
 // Numerics: the decision contract is bitwise against the numpy oracle
 // (demod/scalar.py) given the same FIR output. Every multiply and add of the
@@ -35,13 +58,24 @@
 // built with -fmad=false, IEEE sqrt and division, and no fast math
 // (kernels/_build.py).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarp = 32;
+constexpr int kRing = 128;                 // ticks a warp stages; power of two
+constexpr int kRowFloats = 2 * kWarp;      // one staged tick: re[32], im[32]
+// A thread block: the streams' warp and the copying warp; its shared memory:
+// the ring and the two warps' words (pub[32], ready).
+constexpr int kThreads = 2 * kWarp;
+constexpr size_t kSharedBytes =
+    (size_t)kRing * kRowFloats * sizeof(float) + (kWarp + 1) * sizeof(int);
+static_assert((kRing & (kRing - 1)) == 0, "kRing must be a power of two");
+static_assert(kSharedBytes <= 48 * 1024, "above 48 KB the launch needs "
+              "cudaFuncAttributeMaxDynamicSharedMemorySize");
 constexpr int kFlagWindowMiss = 1;
 constexpr int kFlagUnconsumed = 2;
 
@@ -53,6 +87,7 @@ struct Params {
   float err_keep, err_pole, sweep, lock_th, unlock_th;
   float two_pi, half_pi, phase_scale, inv_q;
   float tanh_table[32];
+  float inv_t_center;            // fl(1 / t_center): the gate's estimate
 };
 constexpr int kNumParams = sizeof(Params) / sizeof(float);
 
@@ -80,6 +115,226 @@ __device__ __forceinline__ float lut_tanh(float v, const Params& p) {
   return p.tanh_table[__float2int_rz(tv) + 16];
 }
 
+// ---- the timing gate -----------------------------------------------------
+
+// Closed-form timing gate (demod/scalar.py gate_fire_np): fires at
+// k = min{k in [1, kmax] : fl(k*tf) >= diff}, kmax = min(K, rem) and
+// diff = fl(thresh - tp). `k` is the ticks consumed (kmax on a non-fire) and
+// `prod` = fl(k*tf), the one add the timing phase advances by (0 when
+// k == 0).
+struct Gate {
+  bool fired;
+  int k;
+  float prod;
+};
+
+// The gate as a serial search over k: the definition, and what gate()
+// runs when its estimate proves nothing.
+__device__ __forceinline__ Gate gate_search(float diff, float tf, int kmax) {
+  for (int k = 1; k <= kmax; ++k) {
+    const float prod = __fmul_rn(__int2float_rn(k), tf);
+    if (prod >= diff) return {true, k, prod};
+  }
+  return {false, kmax, kmax > 0 ? __fmul_rn(__int2float_rn(kmax), tf) : 0.0f};
+}
+
+// The gate in O(1). pass(k) := k >= 1 and fl(k*tf) >= diff is non-decreasing
+// in k when tf > 0 (k*tf grows with k and rounding keeps order), so the
+// search's k is the one k with pass(k) and not pass(k-1). tf stays within
+// t_center*(1 +- 2**-12), so ke = ceil(diff / t_center), clamped to [1, K],
+// is off by at most one: pass is evaluated for ke-2 .. ke+1 with the
+// search's own multiply and compare. If ke+1 fails too and kmax <= ke+1, no
+// k fires. Whatever this cannot prove (tf <= 0 or NaN from a crafted carry,
+// an estimate further off) goes to gate_search.
+__device__ __forceinline__ Gate gate(float tp, float tf, float thresh, int rem,
+                                     int K, const Params& p) {
+  const float diff = __fsub_rn(thresh, tp);
+  const int kmax = min(K, rem);
+  const int ke = max(1, min(__float2int_ru(__fmul_rn(diff, p.inv_t_center)),
+                            K));
+  const float fk = __int2float_rn(ke);
+  const float pm2 = __fmul_rn(__fsub_rn(fk, 2.0f), tf);
+  const float pm1 = __fmul_rn(__fsub_rn(fk, 1.0f), tf);
+  const float p0 = __fmul_rn(fk, tf);
+  const float pp1 = __fmul_rn(__fadd_rn(fk, 1.0f), tf);
+  const bool am2 = ke > 2 && pm2 >= diff;
+  const bool am1 = ke > 1 && pm1 >= diff;
+  const bool a0 = p0 >= diff;
+  const bool ap1 = pp1 >= diff;
+  const bool fm1 = am1 && !am2, f0 = a0 && !am1, fp1 = ap1 && !a0;
+  const int kf = fm1 ? ke - 1 : (f0 ? ke : ke + 1);
+  const float pf = fm1 ? pm1 : (f0 ? p0 : pp1);
+  const bool found = fm1 || f0 || fp1;
+  const bool none = !ap1 && ke + 1 >= kmax;
+  if (tf > 0.0f && (found || none)) {
+    if (found && kf <= kmax) return {true, kf, pf};
+    return {false, kmax,
+            kmax > 0 ? __fmul_rn(__int2float_rn(kmax), tf) : 0.0f};
+  }
+  return gate_search(diff, tf, kmax);
+}
+
+// ---- the block's ticks, staged per warp ------------------------------------
+
+// A thread block is two warps: warp 0 runs 32 streams,
+// warp 1 copies their ticks from Ft into a ring in shared memory ahead of
+// them (stage_ticks), so the streams' warp executes no copy, wait or warp
+// barrier. Tick r of the 32 streams lives at
+// ticks[(r % kRing) * 64 + {0, 32} + lane]. The two warps talk through
+// pub[lane], the tick each stream has reached (T when it needs no more),
+// and ready, the count of ticks that have landed.
+struct Ring {
+  float* ticks;
+  int* pub;
+  int* ready;
+};
+
+__device__ __forceinline__ Ring ring_of(float* smem) {
+  int* words = reinterpret_cast<int*>(smem + kRing * kRowFloats);
+  return {smem, words, words + kWarp};
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.cta.shared.b32 %0, [%1];"
+               : "=r"(v) : "r"((unsigned)__cvta_generic_to_shared(p))
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+  asm volatile("st.release.cta.shared.b32 [%0], %1;"
+               :: "r"((unsigned)__cvta_generic_to_shared(p)), "r"(v)
+               : "memory");
+}
+
+// The copying warp. Each round it reads the streams' ticks, and tops the
+// ring up to kRing ticks past the slowest one with cp.async; a round's
+// copies are published (ready) one round later, when they have landed, so
+// a round never waits for its own requests. The streams publish their tick
+// one step late (Staged::step), so every tick a stream can still be reading
+// is at or past the published one, and nothing it may read is overwritten.
+//
+// A row is two runs (re, im) of n streams: 2*n 4-byte pieces, or 2*n/4
+// 16-byte pieces when every run is 16-byte aligned (B % 4 == 0 and Ft
+// aligned; the streams start at a multiple of 32). Up to 32 pieces: 32/pieces
+// rows go in one pass over the lanes; above (4-byte pieces, n > 16) a lane
+// takes pieces lane and lane + 32 of one row.
+__device__ __forceinline__ void stage_ticks(Ring ring, const float* Ft, int B,
+                                            int T, int b0, int lane) {
+  const float* base = Ft + b0;
+  const int n = min(kWarp, B - b0);
+  const bool vec = B % 4 == 0 && (uintptr_t)Ft % 16 == 0;
+  const int w = vec ? 4 : 1;
+  const int per_run = n / w;
+  const int pieces = 2 * per_run;
+  int rows_per_pass = 1, first_row = 0, col[2] = {lane, -1};
+  if (pieces <= kWarp) {
+    rows_per_pass = kWarp / pieces;
+    first_row = lane / pieces;
+    col[0] = lane - first_row * pieces;
+    if (first_row >= rows_per_pass) first_row = -1;        // an idle lane
+  } else if (lane + kWarp < pieces) {
+    col[1] = lane + kWarp;
+  }
+  int goff[2], soff[2];
+  for (int i = 0; i < 2; ++i) {
+    const int c = col[i] < 0 ? 0 : col[i] / per_run;       // 0 re, 1 im
+    const int j = col[i] < 0 ? 0 : col[i] - c * per_run;
+    goff[i] = col[i] < 0 ? -1 : c * B + j * w;
+    soff[i] = c * kWarp + j * w;
+  }
+
+  // Fill levels: ticks below `requested` have been requested, below `landing`
+  // were requested before this round, below `published` are readable.
+  int requested = 0, landing = 0, published = 0;
+  for (;;) {
+    const int head = __reduce_min_sync(
+        0xffffffffu, *const_cast<volatile int*>(ring.pub + lane));
+    if (head >= T) break;
+    const int target = min(head + kRing, T);
+    // Ticks before head are never read again; skipping them also keeps a
+    // round within kRing rows, so no two of its copies share a slot.
+    requested = max(requested, head);
+    if (first_row >= 0) {
+      for (int r = requested + first_row; r < target; r += rows_per_pass) {
+        const float* src = base + 2 * (size_t)r * B;
+        float* dst = ring.ticks + (r & (kRing - 1)) * kRowFloats;
+        if (vec) {
+          __pipeline_memcpy_async(dst + soff[0], src + goff[0], 16);
+        } else {
+          __pipeline_memcpy_async(dst + soff[0], src + goff[0], 4);
+          if (goff[1] >= 0)
+            __pipeline_memcpy_async(dst + soff[1], src + goff[1], 4);
+        }
+      }
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(1);    // the round before's copies have landed
+    __syncwarp();
+    if (landing > published) {
+      if (lane == 0) store_release(ring.ready, landing);
+      published = landing;
+    } else if (target <= requested) {
+      __nanosleep(64);           // nothing to copy, nothing to publish
+    }
+    landing = requested = max(requested, target);
+  }
+  __pipeline_wait_prior(0);
+}
+
+// A stream's view of its warp's ring.
+struct Staged {
+  Ring ring;
+  int lane, ready, t_pub;
+
+  // Top of a step; t is the stream's tick. Publishes the tick of the step
+  // before: that step's reads may still be in flight, the ones before it
+  // have returned (this step's t was computed from them).
+  __device__ __forceinline__ void step(int t) {
+    *const_cast<volatile int*>(ring.pub + lane) = t_pub;
+    t_pub = t;
+    ready = load_acquire(ring.ready);
+  }
+
+  // The FIR output of tick tau for stream b; 0 unless fired.
+  __device__ __forceinline__ float2 tick(const float* __restrict__ Ft,
+                                         bool fired, int tau, int B,
+                                         int b) const {
+    if (!fired) return make_float2(0.0f, 0.0f);
+    if (tau < ready) {
+      const float* s = ring.ticks + (tau & (kRing - 1)) * kRowFloats + lane;
+      return make_float2(s[0], s[kWarp]);
+    }
+    return make_float2(Ft[(2 * (size_t)tau) * B + b],
+                       Ft[(2 * (size_t)tau + 1) * B + b]);
+  }
+};
+
+// Entry of a kernel's thread: sets the stream b this thread runs and its
+// view of the ring. Warp 1 stages the block's ticks here and is done.
+// Returns whether the thread has a stream to run.
+__device__ __forceinline__ bool enter(float* smem, const float* Ft, int B,
+                                      int T, int* b, Staged* st) {
+  const int lane = threadIdx.x % kWarp;
+  const int b0 = blockIdx.x * kWarp;
+  *b = b0 + lane;
+  const bool runs = threadIdx.x < kWarp && *b < B;
+  st->ring = ring_of(smem);
+  st->lane = lane;
+  st->ready = st->t_pub = 0;
+  if (threadIdx.x < kWarp) st->ring.pub[lane] = runs ? 0 : T;
+  if (threadIdx.x == 0) *st->ring.ready = 0;
+  __syncthreads();
+  if (threadIdx.x >= kWarp) stage_ticks(st->ring, Ft, B, T, b0, lane);
+  return runs;
+}
+
+// A stream needs no more ticks: lets the copying warp finish.
+__device__ __forceinline__ void leave(const Staged& st, int T) {
+  *const_cast<volatile int*>(st.ring.pub + st.lane) = T;
+}
+
 // QPSK (demod/scan.py _make_symbol_step): one fire per step, threshold
 // 2*pi, and the loop update on every fired symbol. It keeps its own inline
 // chain rather than the helpers the OQPSK kernel below is built on: built
@@ -93,8 +348,10 @@ block_demod_kernel(const float* __restrict__ Ft,
                    float* __restrict__ sym_re, float* __restrict__ sym_im,
                    int* __restrict__ valid, int* __restrict__ lonce_out,
                    const Params p, int B, int S, int block_ticks, int K) {
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
+  extern __shared__ __align__(16) float smem[];
+  int b;
+  Staged stage;
+  if (!enter(smem, Ft, B, block_ticks, &b, &stage)) return;
 
   float tp = fs_in[F_TPHASE * B + b];
   float tf = fs_in[F_TFREQ * B + b];
@@ -112,35 +369,24 @@ block_demod_kernel(const float* __restrict__ Ft,
   int t = 0;                      // carry.tick is zeroed at block entry
 
   for (int s = 0; s < S; ++s) {
-    // ---- closed-form timing gate (demod/scalar.py gate_fire_np) ---------
-    // k* = min{k in [1, min(K, rem)] : fl(k*tf) >= fl(2pi - tp)}; a
-    // non-fire consumes min(rem, K) ticks. The phase advances by ONE add
-    // of the selected product.
-    const float diff = __fsub_rn(p.two_pi, tp);
-    const int kmax = min(K, block_ticks - t);
-    bool fired = false;
-    int k_sel = kmax;
-    float prod_sel = 0.0f;
-    for (int k = 1; k <= kmax; ++k) {
-      const float prod = __fmul_rn(__int2float_rn(k), tf);
-      if (prod >= diff) {
-        fired = true;
-        k_sel = k;
-        prod_sel = prod;
-        break;
-      }
-    }
-    if (!fired && kmax > 0) prod_sel = __fmul_rn(__int2float_rn(kmax), tf);
-    tp = __fadd_rn(tp, prod_sel);
-    const int tau = t + k_sel - 1;
-    t += k_sel;
+    stage.step(t);
+    // ---- NCO sine, cosine and phase advance (pll.c:50-97): they need only
+    // the carry, so they come first and overlap the gate and the tick read
+    const float sn = fast_sin(-pp, p);
+    const float cs = fast_sin(__fadd_rn(-pp, p.half_pi), p);
+    float pp_adv = __fadd_rn(pp, pf);
+    if (pp_adv >= p.two_pi) pp_adv = __fsub_rn(pp_adv, p.two_pi);
+    // ---- closed-form timing gate: the phase advances by ONE add of the
+    // selected product -----------------------------------------------------
+    const Gate g = gate(tp, tf, p.two_pi, block_ticks - t, K, p);
+    const bool fired = g.fired;
+    tp = __fadd_rn(tp, g.prod);
+    const int tau = t + g.k - 1;
+    t += g.k;
 
-    // ---- the fired tick, read directly (0 when not fired) ---------------
-    float z_re = 0.0f, z_im = 0.0f;
-    if (fired) {
-      z_re = Ft[(2 * (size_t)tau) * B + b];
-      z_im = Ft[(2 * (size_t)tau + 1) * B + b];
-    }
+    // ---- the fired tick (0 when not fired) ------------------------------
+    const float2 z = stage.tick(Ft, fired, tau, B, b);
+    const float z_re = z.x, z_im = z.y;
 
     // ---- AGC (agc.c:12-25) ----------------------------------------------
     const float bre_n = __fadd_rn(__fmul_rn(bre, p.bias_keep),
@@ -156,12 +402,8 @@ block_demod_kernel(const float* __restrict__ Ft,
     gain_n = gain_n > 0.0f ? gain_n : 0.0f;
 
     // ---- PLL mix (pll.c:50-97) ------------------------------------------
-    const float sn = fast_sin(-pp, p);
-    const float cs = fast_sin(__fadd_rn(-pp, p.half_pi), p);
     const float mre = __fsub_rn(__fmul_rn(zr, cs), __fmul_rn(zi, sn));
     const float mim = __fadd_rn(__fmul_rn(zr, sn), __fmul_rn(zi, cs));
-    float pp_adv = __fadd_rn(pp, pf);
-    if (pp_adv >= p.two_pi) pp_adv = __fsub_rn(pp_adv, p.two_pi);
 
     // ---- M&M retiming (timing.c:59-95) ----------------------------------
     const float sgn_prev = prev < 0.0f ? -1.0f : 1.0f;
@@ -214,6 +456,7 @@ block_demod_kernel(const float* __restrict__ Ft,
     valid[row] = fired ? 1 : 0;
     lonce_out[row] = lonce;
   }
+  leave(stage, block_ticks);
 
   if (t < block_ticks) flags |= kFlagUnconsumed;
   fs_out[F_TPHASE * B + b] = tp;
@@ -236,63 +479,55 @@ block_demod_kernel(const float* __restrict__ Ft,
 
 // ---- OQPSK ---------------------------------------------------------------
 
-// Closed-form timing gate (demod/scalar.py gate_fire_np): fires at
-// k = min{k in [1, min(K, rem)] : fl(k*tf) >= fl(thresh - tp)}. `k` is the
-// ticks consumed (min(rem, K) on a non-fire) and `prod` = fl(k*tf), the one
-// add the timing phase advances by (0 when k == 0).
-struct Gate {
-  bool fired;
-  int k;
-  float prod;
-};
-
-__device__ __forceinline__ Gate gate(float tp, float tf, float thresh, int rem,
-                                     int K) {
-  const float diff = __fsub_rn(thresh, tp);
-  const int kmax = min(K, rem);
-  for (int k = 1; k <= kmax; ++k) {
-    const float prod = __fmul_rn(__int2float_rn(k), tf);
-    if (prod >= diff) return {true, k, prod};
-  }
-  return {false, kmax, kmax > 0 ? __fmul_rn(__int2float_rn(kmax), tf) : 0.0f};
-}
-
-// The FIR output of tick tau for stream b, read directly; 0 unless fired.
-__device__ __forceinline__ float2 tick(const float* __restrict__ Ft,
-                                       bool fired, int tau, int B, int b) {
-  if (!fired) return make_float2(0.0f, 0.0f);
-  return make_float2(Ft[(2 * (size_t)tau) * B + b],
-                     Ft[(2 * (size_t)tau + 1) * B + b]);
-}
-
 // AGC (agc.c:12-25) on the fired tick z (0 on a non-fire): the new bias and
 // gain, and the corrected sample (zr, zi).
 struct Agc {
   float bre, bim, gain, zr, zi;
 };
 
-__device__ __forceinline__ Agc agc(float2 z, float bre, float bim, float gain,
-                                   const Params& p) {
+// The AGC's first half: the bias tracker and the corrected sample, the gain
+// left as it came.
+__device__ __forceinline__ Agc agc_sample(float2 z, float bre, float bim,
+                                          float gain, const Params& p) {
   Agc a;
   a.bre = __fadd_rn(__fmul_rn(bre, p.bias_keep), __fmul_rn(p.bias_pole, z.x));
   a.bim = __fadd_rn(__fmul_rn(bim, p.bias_keep), __fmul_rn(p.bias_pole, z.y));
   a.zr = __fmul_rn(__fsub_rn(z.x, a.bre), gain);
   a.zi = __fmul_rn(__fsub_rn(z.y, a.bim), gain);
-  const float mag = __fsqrt_rn(__fadd_rn(__fmul_rn(a.zr, a.zr),
-                                         __fmul_rn(a.zi, a.zi)));
-  const float g = __fadd_rn(gain, __fmul_rn(p.gain_pole,
-                                            __fsub_rn(p.agc_target, mag)));
-  a.gain = g > 0.0f ? g : 0.0f;
+  a.gain = gain;
   return a;
 }
 
-// PLL mix (pll.c:50-97): (zr + j zi) rotated by -pp.
-__device__ __forceinline__ float2 mix(const Agc& a, float pp,
-                                      const Params& p) {
-  const float sn = fast_sin(-pp, p);
-  const float cs = fast_sin(__fadd_rn(-pp, p.half_pi), p);
-  return make_float2(__fsub_rn(__fmul_rn(a.zr, cs), __fmul_rn(a.zi, sn)),
-                     __fadd_rn(__fmul_rn(a.zr, sn), __fmul_rn(a.zi, cs)));
+// The AGC's second half: the gain after the sample (zr, zi) of agc_sample.
+__device__ __forceinline__ void agc_gain(Agc& a, const Params& p) {
+  const float mag = __fsqrt_rn(__fadd_rn(__fmul_rn(a.zr, a.zr),
+                                         __fmul_rn(a.zi, a.zi)));
+  const float g = __fadd_rn(a.gain, __fmul_rn(p.gain_pole,
+                                              __fsub_rn(p.agc_target, mag)));
+  a.gain = g > 0.0f ? g : 0.0f;
+}
+
+// Both halves.
+__device__ __forceinline__ Agc agc(float2 z, float bre, float bim, float gain,
+                                   const Params& p) {
+  Agc a = agc_sample(z, bre, bim, gain, p);
+  agc_gain(a, p);
+  return a;
+}
+
+// The NCO's sine and cosine of -pp (pll.c:50-97).
+struct Nco {
+  float sn, cs;
+};
+
+__device__ __forceinline__ Nco nco(float pp, const Params& p) {
+  return {fast_sin(-pp, p), fast_sin(__fadd_rn(-pp, p.half_pi), p)};
+}
+
+// PLL mix (pll.c:50-97): (zr + j zi) rotated by -pp, given nco(pp).
+__device__ __forceinline__ float2 mix(const Agc& a, const Nco& n) {
+  return make_float2(__fsub_rn(__fmul_rn(a.zr, n.cs), __fmul_rn(a.zi, n.sn)),
+                     __fadd_rn(__fmul_rn(a.zr, n.sn), __fmul_rn(a.zi, n.cs)));
 }
 
 // One NCO phase advance per fire, wrapped below 2*pi.
@@ -431,23 +666,26 @@ block_demod_oqpsk_kernel(const float* __restrict__ Ft,
                          int* __restrict__ valid, int* __restrict__ lonce_out,
                          const Params p, int B, int S, int block_ticks,
                          int K) {
-  const int b = blockIdx.x * kThreads + threadIdx.x;
-  if (b >= B) return;
+  extern __shared__ __align__(16) float smem[];
+  int b;
+  Staged stage;
+  if (!enter(smem, Ft, B, block_ticks, &b, &stage)) return;
   State s = load_state(fs_in, is_in, B, b);
   const float pi = __fmul_rn(p.two_pi, 0.5f);   // fl(pi): two_pi is 2*fl(pi)
   int t = 0;                      // carry.tick is zeroed at block entry
+  stage.step(t);
 
   // ---- block-entry completion pre-fire (row 0; zeros where not split) ---
   float pre_re = 0.0f, pre_im = 0.0f;
   bool pre_ok = false;
   if (s.slot == 2) {
-    const Gate g = gate(s.tp, s.tf, p.two_pi, block_ticks, K);
+    const Gate g = gate(s.tp, s.tf, p.two_pi, block_ticks, K, p);
     const float tp = __fadd_rn(s.tp, g.prod);
     t = g.k;
-    const Agc a = agc(tick(Ft, g.fired, t - 1, B, b), s.bre, s.bim, s.gain,
-                      p);
+    const Agc a = agc(stage.tick(Ft, g.fired, t - 1, B, b), s.bre, s.bim,
+                      s.gain, p);
     pre_re = s.inphase;
-    pre_im = mix(a, s.pp, p).y;
+    pre_im = mix(a, nco(s.pp, p)).y;
     pre_ok = g.fired;
     State u = s;
     loop_update(u, pre_re, pre_im, tp, advance(s.pp, s.pf, p), p);
@@ -466,18 +704,24 @@ block_demod_oqpsk_kernel(const float* __restrict__ Ft,
           s.lonce);
 
   for (int step = 0; step < S; ++step) {
+    stage.step(t);
+    // The NCO phase after A's fire, and the sine and cosine A's and B's
+    // mixes need: they depend only on the carry, so they come first and
+    // overlap the gates and the tick reads.
+    const float pp_a = advance(s.pp, s.pf, p);
+    const Nco n0 = nco(s.pp, p), n1 = nco(pp_a, p);
     // ---- transaction A: the I half-fire --------------------------------
     const Gate ga = gate(s.tp, s.tf, __fmul_rn(__int2float_rn(s.slot), pi),
-                         block_ticks - t, K);
+                         block_ticks - t, K, p);
     const float tp1 = __fadd_rn(s.tp, ga.prod);
     const int t1 = t + ga.k;
-    const Agc a = agc(tick(Ft, ga.fired, t1 - 1, B, b), s.bre, s.bim,
+    const Agc a = agc(stage.tick(Ft, ga.fired, t1 - 1, B, b), s.bre, s.bim,
                       s.gain, p);
-    const float mreA = mix(a, s.pp, p).x;
+    const float mreA = mix(a, n0).x;
     State s1 = s;                 // the carry after A
     if (ga.fired) {
       take_agc(s1, a);
-      s1.pp = advance(s.pp, s.pf, p);
+      s1.pp = pp_a;
       if (s.slot == 1) s1.inphase = mreA;
       s1.slot = s.slot == 1 ? 2 : 1;
     }
@@ -486,22 +730,19 @@ block_demod_oqpsk_kernel(const float* __restrict__ Ft,
     Gate gb = {false, 0, 0.0f};
     if (ga.fired) {
       gb = gate(tp1, s.tf, __fmul_rn(__int2float_rn(s1.slot), pi),
-                block_ticks - t1, K);
+                block_ticks - t1, K, p);
       if (!gb.fired && block_ticks - t1 > K) s1.flags |= kFlagWindowMiss;
     }
     const float tp2 = __fadd_rn(tp1, gb.prod);
     t = t1 + gb.k;
-    const Agc q = agc(tick(Ft, gb.fired, t - 1, B, b), s1.bre, s1.bim,
-                      s1.gain, p);
-    const float mimB = mix(q, s1.pp, p).y;
+    Agc q = agc_sample(stage.tick(Ft, gb.fired, t - 1, B, b), s1.bre, s1.bim,
+                       s1.gain, p);
+    const float mimB = mix(q, ga.fired ? n1 : n0).y;
     const float pp2 = gb.fired ? advance(s1.pp, s.pf, p) : s1.pp;
 
     // ---- the symbol and ONE loop update (Q fires of slot 2 only) -------
     const bool do_update = gb.fired && s1.slot == 2;
-    if (gb.fired) {
-      take_agc(s1, q);
-      s1.slot = s1.slot == 1 ? 2 : 1;
-    }
+    if (gb.fired) s1.slot = s1.slot == 1 ? 2 : 1;
     State u = s1;
     loop_update(u, s1.inphase, mimB, tp2, pp2, p);
     if (!do_update) {
@@ -510,10 +751,14 @@ block_demod_oqpsk_kernel(const float* __restrict__ Ft,
       u.pp = pp2;
     }
     s1 = u;
+    // B's gain is the next step's: its sqrt comes after the loop update.
+    agc_gain(q, p);
+    if (gb.fired) take_agc(s1, q);
     put_row(sym_re, sym_im, valid, lonce_out, step + 1, B, b, s1.inphase,
             mimB, do_update, s1.lonce);
     s = s1;
   }
+  leave(stage, block_ticks);
   store_state(s, t, block_ticks, fs_out, is_out, B, b);
 }
 
@@ -536,10 +781,10 @@ int block_demod_launch(const float* Ft, const float* fs_in, const int* is_in,
   if (n_params != kNumParams) return (int)cudaErrorInvalidValue;
   Params p;
   memcpy(&p, params, sizeof(Params));
-  const int grid = (B + kThreads - 1) / kThreads;
-  block_demod_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      Ft, fs_in, is_in, fs_out, is_out, sym_re, sym_im, valid, lonce_out, p,
-      B, S, block_ticks, K);
+  const int grid = (B + kWarp - 1) / kWarp;
+  block_demod_kernel<<<grid, kThreads, kSharedBytes, (cudaStream_t)stream>>>(
+          Ft, fs_in, is_in, fs_out, is_out, sym_re, sym_im, valid, lonce_out,
+          p, B, S, block_ticks, K);
   return (int)cudaGetLastError();
 }
 
@@ -552,10 +797,10 @@ int block_demod_oqpsk_launch(const float* Ft, const float* fs_in,
   if (n_params != kNumParams) return (int)cudaErrorInvalidValue;
   Params p;
   memcpy(&p, params, sizeof(Params));
-  const int grid = (B + kThreads - 1) / kThreads;
-  block_demod_oqpsk_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      Ft, fs_in, is_in, fs_out, is_out, sym_re, sym_im, valid, lonce_out, p,
-      B, S, block_ticks, K);
+  const int grid = (B + kWarp - 1) / kWarp;
+  block_demod_oqpsk_kernel<<<grid, kThreads, kSharedBytes, (cudaStream_t)stream>>>(
+          Ft, fs_in, is_in, fs_out, is_out, sym_re, sym_im, valid, lonce_out,
+          p, B, S, block_ticks, K);
   return (int)cudaGetLastError();
 }
 

@@ -354,9 +354,11 @@ def load_kernel() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _packed_params(cfg) -> np.ndarray:
-    """The kernel's Params struct as a host float32 array (read-only)."""
-    params = np.array(list(_params(cfg).values()) + list(TANH_TABLE),
-                      dtype=np.float32)
+    """The kernel's Params struct as a host float32 array (read-only): the
+    recurrence's constants, the tanh table, and fl(1 / t_center), by which
+    the kernel's O(1) gate estimates the fired candidate."""
+    params = np.array(list(_params(cfg).values()) + list(TANH_TABLE)
+                      + [_F32(1.0) / cfg.timing_freq], dtype=np.float32)
     params.flags.writeable = False
     return params
 

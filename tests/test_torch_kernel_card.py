@@ -85,8 +85,14 @@ def _host(carry, out) -> tuple[dict, dict]:
                                    for k in _OUT}
 
 
+# Stream counts that take every path of the kernels' tick staging: one stream
+# (31 lanes only copy), 4-byte pieces (3, 33, 130), 16-byte pieces (4, 256),
+# a ragged last warp (3, 4, 33, 130) and whole warps (256).
+BATCHES = [1, 3, 4, 33, 130, 256]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch", [1, 4, 130])
+@pytest.mark.parametrize("batch", BATCHES)
 def test_kernel_matches_plain_bitwise(cuda_device, batch):
     """Two chained blocks, each chain carrying its own carry: every output
     and carry leaf bitwise; one launch per block."""
@@ -108,15 +114,16 @@ def test_kernel_matches_plain_bitwise(cuda_device, batch):
             np.testing.assert_array_equal(kcn[k], pcn[k], err_msg=k)
 
 
-def _kernel_vs_plain(cfg, x, n_blocks):
+def _kernel_vs_plain(cfg, x, n_blocks, carry=None, min_valid=0.9):
     """n_blocks chained blocks of x on the card, kernel and plain each
-    carrying their own carry: every output and carry leaf bitwise, one
-    launch per block on cfg's kernel and none on the other. Returns the
-    entry slots and the kernel's outputs of each block."""
+    carrying their own carry (from `carry`, else the initial one): every
+    output and carry leaf bitwise, one launch per block on cfg's kernel and
+    none on the other. Returns the entry slots and the kernel's outputs of
+    each block."""
     dev = x.device
     banks = torch.as_tensor(make_fir_banks(cfg), device=dev)
     B = x.shape[0]
-    kc = pc = batch_carry(cfg, B, dev)
+    kc = pc = batch_carry(cfg, B, dev) if carry is None else carry
     tail = kc.fir_tail
     mine, other = ((block_demod_oqpsk, block_demod) if cfg.oqpsk
                    else (block_demod, block_demod_oqpsk))
@@ -132,7 +139,7 @@ def _kernel_vs_plain(cfg, x, n_blocks):
         (kcn, kon), (pcn, pon) = _host(kc, ko), _host(pc, po)
         rows = cfg.steps_per_block + (1 if cfg.oqpsk else 0)
         assert kon["valid"].shape == (B, rows)
-        assert kon["valid"].sum() > 0.9 * B * cfg.block_len * (
+        assert kon["valid"].sum() > min_valid * B * cfg.block_len * (
             cfg.symrate / 230400)
         for k in _OUT:
             np.testing.assert_array_equal(kon[k], pon[k], err_msg=k)
@@ -143,19 +150,74 @@ def _kernel_vs_plain(cfg, x, n_blocks):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch", [1, 4, 130])
+@pytest.mark.parametrize("batch", BATCHES)
 def test_oqpsk_kernel_matches_plain_bitwise(cuda_device, batch):
     """OQPSK: two chained blocks, every output row (the pre-fire's row 0
     included) and carry leaf bitwise; one launch of the OQPSK kernel per
-    block. At 130 streams the pre-fire runs: some stream enters block 1
-    with a split symbol, and its row 0 holds a symbol."""
+    block. From 130 streams on the pre-fire runs: some stream enters block
+    1 with a split symbol, and its row 0 holds a symbol."""
     x = torch.tensor(_iq(batch, 2 * L, OQ_CFG), device=cuda_device)
     seen = _kernel_vs_plain(OQ_CFG, x, 2)
-    if batch == 130:
+    if batch >= 130:
         slot_in, out = seen[1]
         assert (slot_in == 2).any()
         np.testing.assert_array_equal(out["valid"][:, 0],
                                       (slot_in == 2).astype(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["qpsk", "oqpsk"])
+def test_three_chained_blocks_with_pre_fire(cuda_device, mode):
+    """Three chained blocks at 130 streams; for OQPSK the pre-fire (which
+    reads its tick before the first step) runs at the entry of block 1 or
+    block 2, wherever a stream enters with a split symbol."""
+    cfg = OQ_CFG if mode == "oqpsk" else CFG
+    x = torch.tensor(_iq(130, 3 * L, cfg), device=cuda_device)
+    seen = _kernel_vs_plain(cfg, x, 3)
+    if cfg.oqpsk:
+        assert any((slot_in == 2).any() for slot_in, _ in seen)
+        for slot_in, out in seen:
+            np.testing.assert_array_equal(out["valid"][:, 0],
+                                          (slot_in == 2).astype(np.int32))
+
+
+def _crafted(cfg, batch, dev, **leaves):
+    """The initial carry with the first streams' leaves replaced."""
+    carry = batch_carry(cfg, batch, dev)
+    for k, vals in leaves.items():
+        leaf = getattr(carry, k).clone()
+        leaf[:len(vals)] = torch.tensor(vals, dtype=leaf.dtype, device=dev)
+        setattr(carry, k, leaf)
+    return carry
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["qpsk", "oqpsk"])
+def test_stream_outside_the_staged_span(cuda_device, mode):
+    """Streams whose timing phase starts far ahead of or behind the others
+    consume ticks out of step with their warp, so fired ticks fall outside
+    the span the warp has staged and are read from global memory; the
+    result is the plain version's all the same."""
+    cfg = OQ_CFG if mode == "oqpsk" else CFG
+    x = torch.tensor(_iq(36, 2 * L, cfg), device=cuda_device)
+    for phase in ([0.0, 200.0], [0.0, 0.0, -300.0], [150.0] * 33):
+        carry = _crafted(cfg, 36, cuda_device, t_phase=phase)
+        _kernel_vs_plain(cfg, x, 2, carry, min_valid=0.8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["qpsk", "oqpsk"])
+def test_timing_frequency_outside_the_clamp(cuda_device, mode):
+    """A crafted carry whose timing frequency is outside t_center*(1 +-
+    2**-12), zero, negative or NaN: the O(1) gate's estimate proves
+    nothing there and the kernel runs the serial search; bitwise equal to
+    the plain version (NaN leaves included)."""
+    cfg = OQ_CFG if mode == "oqpsk" else CFG
+    tc = float(cfg.timing_freq)
+    x = torch.tensor(_iq(8, 2 * L, cfg), device=cuda_device)
+    carry = _crafted(cfg, 8, cuda_device, t_freq=[
+        tc * 1.3, tc * 0.6, 0.0, -tc, float("nan"), tc * 3])
+    _kernel_vs_plain(cfg, x, 2, carry, min_valid=0.2)
 
 
 @pytest.mark.gpu
