@@ -17,6 +17,17 @@ by default):
   fleet   torch.profiler breakdowns of the fleet loop (make_batch_demod, 8
           blocks at B = 128 and 1024, per mode) and unprofiled fleet
           Msamples/s (16 blocks);
+  driver  the fleet driver (FleetDemodulator, B = 128 x 16 chained blocks,
+          per mode): Msamples/s over 4 chains for each upload format and
+          output form (f32 or i16 in, float or packed int8 out) beside the
+          bare make_batch_demod loop on the same input already on the card,
+          in turns, and a torch.profiler breakdown of one i16/int8 chain
+          (wall, device busy, the host's share, the upload's copy);
+  serving the serving host's loop in this process (ServingFleet, 256 QPSK
+          streams in two groups of 128, 16 blocks a chain, f32 in, int8 out,
+          one lock-gated writer per stream to the null device): ms per
+          chain spent stacking the inputs, in process_blocks and in the
+          writers, and Msamples/s;
   stream  a torch.profiler breakdown of the stream demodulator
           (StreamDemodulator, B = 1, ~10 s of signal, per mode), with its
           count of blocks replayed on the host;
@@ -48,7 +59,7 @@ import time
 import numpy as np
 import torch
 
-SECTIONS = ("sweep", "fir", "fleet", "stream")
+SECTIONS = ("sweep", "fir", "fleet", "driver", "serving", "stream")
 SWEEP_B = (1, 32, 128, 512, 1024, 4096, 16896, 33792)
 AB_B = (1, 128, 16896)
 
@@ -258,6 +269,106 @@ def section_fleet(cfgs: dict, dev, res: dict) -> None:
             del xx
 
 
+def section_driver(cfgs: dict, dev, res: dict) -> None:
+    import chip_smoke as cs
+    from meteor_demod_tpu_torch.demod.backend import make_batch_demod
+    from meteor_demod_tpu_torch.demod.state import batch_carry
+    from meteor_demod_tpu_torch.parallel.mesh import FleetDemodulator
+    B, K, chains = cs.N_FLEET, cs.CHAIN, 4
+    for mode, cfg in cfgs.items():
+        L = cfg.block_len
+        span = K * L
+        xi = cs.fleet_iq(cfg, B, (chains + 1) * span, 11, dev).round().clamp(
+            -32768, 32767)
+        feeds = {"f32": xi.cpu().numpy(),
+                 "i16": xi.to(torch.int16).cpu().numpy()}
+        fn = make_batch_demod(cfg, B, dev)
+
+        def bare():
+            c = batch_carry(cfg, B, dev)
+            for i in range(K, (chains + 1) * K):
+                c, _ = fn(c, xi[:, i * L:(i + 1) * L])
+            torch.cuda.synchronize()
+
+        def driver(ingest, packed):
+            f = FleetDemodulator(cfg, B, dev, chain_blocks=K, ingest=ingest,
+                                 packed_output=packed)
+            f.process_blocks(feeds[ingest][:, :span])          # warm-up
+            t0 = time.perf_counter()
+            for c in range(1, chains + 1):
+                f.process_blocks(feeds[ingest][:, c * span:(c + 1) * span])
+            secs = time.perf_counter() - t0
+            if f.recovered_streams:
+                raise RuntimeError(f"{f.recovered_streams} streams recovered")
+            return secs, f
+
+        bare()
+        runs = [("bare loop", None)] + [
+            (f"driver {i} in, {'int8' if p else 'float'} out", (i, p))
+            for i in ("f32", "i16") for p in (False, True)]
+        out: dict = {name: [] for name, _ in runs}
+        for order in (runs, runs[::-1]):
+            for name, arg in order:
+                if arg is None:
+                    t0 = time.perf_counter()
+                    bare()
+                    secs = time.perf_counter() - t0
+                else:
+                    secs, _ = driver(*arg)
+                out[name].append(B * chains * span / secs / 1e6)
+        for name, rates in out.items():
+            print(f"{mode} {name}, B={B} x {K} blocks x {chains} chains: "
+                  f"{rates[0]:.1f} and {rates[1]:.1f} Msamples/s", flush=True)
+        _, f = driver("i16", True)
+        prof = device_profile(
+            lambda: f.process_blocks(feeds["i16"][:, :span]),
+            f"{mode} driver chain (i16 in, int8 out), B={B} x {K} blocks")
+        print(f"{mode} driver chain: host share "
+              f"{prof['wall_ms'] - prof['busy_ms']:.3f} ms of "
+              f"{prof['wall_ms']:.3f} ms (profiled)", flush=True)
+        res[f"{mode}_driver"] = dict(msamples=out, profile=prof)
+        del xi, feeds
+
+
+def section_serving(cfgs: dict, dev, res: dict) -> None:
+    import chip_smoke as cs
+    from meteor_demod_tpu_torch import serve_fleet
+    from meteor_demod_tpu_torch.dsp.fir import f32_to_iq
+    from meteor_demod_tpu_torch.io.writer import SymbolWriter
+    from meteor_demod_tpu_torch.parallel.serving import ServingFleet
+    cfg = cfgs["qpsk"]
+    n, K, chains = 256, cs.CHAIN, 4
+    span = K * cfg.block_len
+    x = f32_to_iq(cs.fleet_iq(cfg, 128, (chains + 1) * span, 11, dev)
+                  .cpu().numpy())
+    sources = [x[i % 128] for i in range(n)]
+    fleet = ServingFleet(cfg, n, group_size=128, device=dev, chain_blocks=K,
+                         packed_output=True)
+    batch = np.empty((n, span), np.complex64)
+    parts = dict(stack=[], dispatch=[], writers=[])
+    with open(os.devnull, "wb") as sink:
+        writers = [SymbolWriter(sink) for _ in range(n)]
+        for c in range(chains + 1):
+            t0 = time.perf_counter()
+            np.stack([s[c * span:(c + 1) * span] for s in sources], out=batch)
+            t1 = time.perf_counter()
+            outs = fleet.process_blocks(batch)
+            t2 = time.perf_counter()
+            for i in range(n):
+                serve_fleet._write_rows(writers[i], outs, i)
+            t3 = time.perf_counter()
+            for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+                parts[k].append(dt * 1e3)
+    ms = {k: statistics.mean(v[1:]) for k, v in parts.items()}   # 0: warm-up
+    total = sum(ms.values())
+    print(f"serving loop, {n} streams x {K} blocks a chain (f32 in, int8 "
+          f"out): stack {ms['stack']:.1f} ms, process_blocks "
+          f"{ms['dispatch']:.1f} ms, writers {ms['writers']:.1f} ms a chain; "
+          f"{n * span / total / 1e3:.1f} Msamples/s; "
+          f"{sum(w.bytes_out for w in writers)} soft bytes", flush=True)
+    res["serving_loop"] = dict(ms_per_chain=ms, all=parts)
+
+
 def section_stream(cfgs: dict, dev, res: dict) -> None:
     import chip_smoke as cs
     from meteor_demod_tpu_torch.demod.pipeline import StreamDemodulator
@@ -372,6 +483,7 @@ def main() -> int:
     if args.ab:
         section_ab(cfgs, dev, res, args.ab)
     run = dict(sweep=section_sweep, fir=section_fir, fleet=section_fleet,
+               driver=section_driver, serving=section_serving,
                stream=section_stream)
     for name in filter(None, args.sections.split(",")):
         run[name](cfgs, dev, res)

@@ -22,19 +22,39 @@ Phases, one line each; any failed check raises and the script exits non-zero:
   (c) the QPSK fleet width: 128 streams x 16 chained blocks through
       make_batch_demod on the card: no flags, symbol counts within 1 % of
       nominal, Msamples/s;
-  (d) the QPSK CLI: a 60 s, 16-bit, 230.4 ksps QPSK WAV (300 Hz carrier,
+  (d) the QPSK CLI: a 30 s, 16-bit, 230.4 ksps QPSK WAV (300 Hz carrier,
       20 dB) through `cli.main([... "-B", "-q", "-o", out, wav])` on the card:
-      exit 0, at least one kernel launch per block, 72000*60 symbols within
+      exit 0, at least one kernel launch per block, 72000*30 symbols within
       1 %, carrier locked, mean |soft byte| in 55-75;
-  (c-oq), (d-oq) the same for OQPSK (`-m oqpsk -r 80k`; 80000*60 symbols,
+  (c-oq), (d-oq) the same for OQPSK (`-m oqpsk -r 80k`; 80000*30 symbols,
       mean |soft byte| in 60-79: the JAX CLI on the CPU reads 69.55 on the
-      first 6 s of the same WAV).
-Each main path, QPSK ((c) and (d)) and OQPSK ((c-oq) and (d-oq)), is driven
-with both kernels' launch counts and StreamDemodulator's count of blocks
-replayed by the numpy oracle on the host set to 0 just before it and read
-just after: the path's own kernel must have launched, the other kernel not
-at all, and the replay count must be 0, so that every block came from the
-card. The line before the last is the kernels' JSON record, the last line
+      first 6 s of the same WAV);
+  (e), (e-oq) the fleet driver at full width: FleetDemodulator(cfg, 128,
+      chain_blocks=16, ingest="i16", packed_output=True) on the card (its
+      default device) over (c)'s kind of fixture rounded to int16, 4 chains:
+      int8 outputs bitwise equal to make_batch_demod block by block on the
+      decoded float input plus the host quantizer, no flags, no recovered
+      stream, telemetry `symbols` equal to the sum of `valid`, 64 kernel
+      launches (one per block); Msamples/s, and the host's share of a chain
+      (wall time less the torch.profiler sum of device time);
+  (f), (f-oq) the fleet checkpoint: saved after chain 2 of (e), loaded, and
+      chains 3-4 run on the loaded fleet: outputs and every carry leaf
+      bitwise equal to the uninterrupted run's;
+  (g) the serving host: `python -m meteor_demod_tpu_torch.serve_fleet --synth
+      256 --dead 2 --group-size 128 --chain 16` on 6 s of signal as a
+      subprocess on the card, once straight through and once stopped with
+      --max-blocks and resumed with --resume: exit 0, 256 .s files,
+      byte-identical between the two, every live stream's symbol count
+      between the nominal count after the latest lock its carrier allows
+      and the nominal count of the whole run (1 % either way), no stream
+      span recovered by the host oracle; Msamples/s.
+Each main path, QPSK ((c), (d), (e), (f)) and OQPSK (the same with -oq), is
+driven with both kernels' launch counts and the counts of blocks replayed by
+the numpy oracle on the host set to 0 just before it and read just after:
+the path's own kernel must have launched, the other kernel not at all, and
+the replay counts must be 0, so that every block came from the card. (The
+serving host of (g) is a process of its own: its launches are not in these
+counts.) The line before the last is the kernels' JSON record, the last line
 is {"ok": true, ...}.
 
 Imports nothing of JAX or of the JAX package. Exits 1 without a CUDA card.
@@ -42,8 +62,10 @@ Imports nothing of JAX or of the JAX package. Exits 1 without a CUDA card.
 
 from __future__ import annotations
 
+import filecmp
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -56,8 +78,16 @@ FS = 230400
 SEED = 2024
 N_FLEET = 128
 CHAIN = 16
-CLI_SECONDS = 60
+CLI_SECONDS = 30
 PIECE_S = 3          # the CLI fixture is a PIECE_S-second sim piece, tiled
+FLEET_CHAINS = 4     # (e): chains of CHAIN blocks through the fleet driver
+# (g): the serving host's fleet. 6 s of signal, not the 10 s of a short pass:
+# synthesizing 254 passes on the host costs ~10 s per second of signal, three
+# times over, and is set-up, not serving.
+SERVE_ARGS = ["--synth", "256", "--dead", "2", "--seconds", "6",
+              "--group-size", "128", "--chain", "16", "--status-every", "4"]
+SERVE_KILL_AT = 5    # chains served before the stopped run ends
+SWEEP_HZ_PER_S = 825.0   # the acquisition sweep's rate at 72 ksym/s
 # The card's published peaks (H100 SXM data sheet) for the kernels' bound.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -329,6 +359,206 @@ def phase_d(cfg, dev, card: str, tag: str) -> None:
         f"replayed on the host, {secs:.2f} s wall on {card}")
 
 
+def device_busy_ms(fn) -> tuple[float, float]:
+    """Run fn once under torch.profiler: (wall ms, summed device ms of its
+    CUDA kernels and copies)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    check(busy > 0, "torch.profiler saw no device time")
+    return wall_ms, busy
+
+
+def phase_ef(cfg, dev, card: str, tag: str) -> None:
+    """(e) the fleet driver at full width against make_batch_demod plus the
+    host quantizer; (f) its checkpoint, saved after chain 2 and resumed."""
+    from meteor_demod_tpu_torch.demod.backend import make_batch_demod
+    from meteor_demod_tpu_torch.demod.pipeline import quantize
+    from meteor_demod_tpu_torch.demod.state import batch_carry
+    from meteor_demod_tpu_torch.io.checkpoint import (load_fleet_checkpoint,
+                                                      save_fleet_checkpoint)
+    from meteor_demod_tpu_torch.parallel.mesh import FleetDemodulator
+    mode = MODES["oqpsk" if cfg.oqpsk else "qpsk"]
+    L, span = cfg.block_len, CHAIN * cfg.block_len
+    n_blocks = FLEET_CHAINS * CHAIN
+    raw = fleet_iq(cfg, N_FLEET, n_blocks * L, SEED + 1, dev).round().clamp(
+        -32768, 32767).to(torch.int16)
+    # The reference: the batch demodulator block by block on the decoded
+    # floats, quantized on the host (not counted among the path's launches).
+    fn = make_batch_demod(cfg, N_FLEET, dev)
+    carry = batch_carry(cfg, N_FLEET, dev)
+    ref = []
+    for i in range(n_blocks):
+        carry, o = fn(carry, raw[:, i * L:(i + 1) * L].float())
+        ref.append(dict(
+            sym_i=quantize(o.sym_re.cpu().numpy()).astype(np.int8),
+            sym_q=quantize(o.sym_im.cpu().numpy()).astype(np.int8),
+            valid=o.valid.cpu().numpy().astype(np.int8),
+            locked_once=o.locked_once.cpu().numpy().astype(np.int8)))
+    ref_carry = leaves(carry)
+    raw = raw.cpu().numpy()
+    kernel(mode).launches = 0
+
+    kw = dict(chain_blocks=CHAIN, ingest="i16", packed_output=True)
+    fleet = FleetDemodulator(cfg, N_FLEET, **kw)       # device: the default
+    check(fleet.device.type == "cuda", f"({tag}) the fleet is on {fleet.device}")
+    outs, walls = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "fleet.ckpt")
+        for c in range(FLEET_CHAINS):
+            t0 = time.perf_counter()
+            got = fleet.process_blocks(raw[:, c * span:(c + 1) * span])
+            walls.append(time.perf_counter() - t0)
+            outs.append(got)
+            for k in ("sym_i", "sym_q", "valid", "locked_once"):
+                want = np.concatenate(
+                    [r[k] for r in ref[c * CHAIN:(c + 1) * CHAIN]], axis=1)
+                a = getattr(got, k)
+                check(a.dtype == np.int8 and np.array_equal(a, want),
+                      f"({tag}) chain {c}: fleet {k} differs from "
+                      f"make_batch_demod + host quantizer")
+            check(not fleet.stream_flags.any(), f"({tag}) chain {c}: flags "
+                  f"on streams {fleet.flagged_streams()}")
+            check(int(fleet.telemetry["symbols"]) == int(got.valid.sum()),
+                  f"({tag}) chain {c}: telemetry symbols "
+                  f"{fleet.telemetry['symbols']} != {got.valid.sum()}")
+            if c == 1:
+                save_fleet_checkpoint(ckpt, fleet)
+        launched = kernel(mode).launches
+        check(launched == n_blocks, f"({tag}) {launched} kernel launches for "
+              f"{n_blocks} blocks")
+        check(fleet.recovered_streams == 0,
+              f"({tag}) {fleet.recovered_streams} streams recovered on the host")
+        final = leaves(fleet.carry)
+        for k in final:
+            check(np.array_equal(final[k], ref_carry[k]),
+                  f"({tag}) fleet carry {k} differs from make_batch_demod's")
+        # The first chain carries the card's warm-up; rate over the rest.
+        wall = float(np.mean(walls[1:]))
+        msps = N_FLEET * span / wall / 1e6
+        locked = int(fleet.telemetry["locked_streams"])
+
+        # ---- (f): resume from the checkpoint taken after chain 2 ----------
+        ftag = tag.replace("e", "f", 1)
+        resumed = load_fleet_checkpoint(ckpt)
+        check(resumed.device.type == "cuda" and resumed._block_idx == 2,
+              f"({ftag}) resumed on {resumed.device} at chain "
+              f"{resumed._block_idx}")
+    for c in range(2, FLEET_CHAINS):
+        got = resumed.process_blocks(raw[:, c * span:(c + 1) * span])
+        for k in ("sym_i", "sym_q", "valid", "locked_once"):
+            check(np.array_equal(getattr(got, k), getattr(outs[c], k)),
+                  f"({ftag}) chain {c}: resumed {k} differs")
+    after = leaves(resumed.carry)
+    for k in final:
+        check(np.array_equal(after[k], final[k]),
+              f"({ftag}) resumed carry {k} differs from the uninterrupted")
+    check(resumed.telemetry == fleet.telemetry and
+          resumed.recovered_streams == 0, f"({ftag}) resumed telemetry differs")
+    # The host's share of a chain: one more chain (the last one's input
+    # again, on the resumed fleet, its output unused) under the profiler.
+    prof_wall, busy = device_busy_ms(lambda: resumed.process_blocks(
+        raw[:, (FLEET_CHAINS - 1) * span:]))
+    say(f"({tag}) fleet driver {N_FLEET} x {CHAIN} blocks x {FLEET_CHAINS} "
+        f"chains (i16 in, int8 out): == make_batch_demod + host quantizer "
+        f"bitwise, flags 0, 0 streams recovered, {locked}/{N_FLEET} locked, "
+        f"{launched} launches for {n_blocks} blocks; {wall * 1e3:.2f} ms per "
+        f"chain (first {walls[0] * 1e3:.1f}), {msps:.1f} Msamples/s; device "
+        f"busy {busy:.2f} ms of a chain, host {wall * 1e3 - busy:.2f} ms "
+        f"(profiled chain: {prof_wall:.2f} ms wall) on {card}")
+    say(f"({ftag}) fleet checkpoint after chain 2, loaded, chains 3-4: "
+        f"outputs and all {len(final)} carry leaves bitwise equal to the "
+        f"uninterrupted run on {card}")
+
+
+def phase_g(card: str) -> None:
+    """The serving host as a subprocess on the card: straight through, and
+    stopped and resumed; see the module docstring."""
+    from meteor_demod_tpu_torch.constants import RING_SYMBOLS
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("METEOR_DEMOD_PLATFORM", None)                   # the card
+
+    def host(out_dir, extra):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "meteor_demod_tpu_torch.serve_fleet",
+             *SERVE_ARGS, "--out-dir", out_dir, *extra], env=env, cwd=root,
+            capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"(g) serve_fleet {' '.join(extra)} exit "
+              f"{proc.returncode}:\n{proc.stdout[-1500:]}\n{proc.stderr[-3000:]}")
+        check("on cuda" in proc.stdout, "(g) the host did not serve on the card")
+        return proc.stdout, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        a_dir, b_dir = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        ck_a, ck_b = os.path.join(tmp, "a.npz"), os.path.join(tmp, "b.npz")
+        out_a, secs_a = host(a_dir, ["--checkpoint", ck_a])
+        out_k, secs_k = host(b_dir, ["--checkpoint", ck_b,
+                                     "--checkpoint-every", "3",
+                                     "--max-blocks", str(SERVE_KILL_AT)])
+        check(f"{SERVE_KILL_AT} chains served" in out_k,
+              f"(g) the stopped run: {out_k[-300:]}")
+        out_r, secs_r = host(b_dir, ["--checkpoint", ck_b, "--resume"])
+        check(f"resumed at chain {SERVE_KILL_AT}" in out_r,
+              f"(g) the resumed run: {out_r[-300:]}")
+        m = re.search(r"(\d+) chains served, (\d+) soft bytes across 256 "
+                      r"streams, (\d+) stream spans recovered by the host "
+                      r"oracle, ([0-9.]+) Msamp/s over ([0-9.]+) s", out_a)
+        check(m is not None, f"(g) no summary line: {out_a[-300:]}")
+        chains, recovered = int(m.group(1)), int(m.group(3))
+        check(recovered == 0 and "0 stream spans recovered" in out_r
+              and "0 stream spans recovered" in out_k,
+              f"(g) {recovered} stream spans recovered by the host oracle")
+        names = sorted(os.listdir(a_dir))
+        check(len(names) == 256 and names == sorted(os.listdir(b_dir)),
+              f"(g) {len(names)} .s files")
+        for name in names:
+            check(filecmp.cmp(os.path.join(a_dir, name),
+                              os.path.join(b_dir, name), shallow=False),
+                  f"(g) {name} differs between the straight and the resumed run")
+        sizes = [os.path.getsize(os.path.join(a_dir, n)) for n in names]
+    # Symbol counts. The writer drops everything before a stream's first
+    # lock. The sweep climbs from 0 Hz at SWEEP_HZ_PER_S, so a live stream
+    # with carrier c >= 0 locks by c / SWEEP_HZ_PER_S + 1 s; streams whose
+    # carrier the sweep reaches later than 2 s before the end, or only on
+    # its way down, are not held to a lower bound.
+    feed_s = 16 * 8192 / FS
+    total_s = chains * feed_s
+    checked, locked = 0, 0
+    for i, size in enumerate(sizes[2:], start=2):
+        n_sym = size // 2
+        check(n_sym <= 1.01 * 72000 * total_s, f"(g) stream {i}: {n_sym} "
+              f"symbols from {total_s:.2f} s")
+        locked += n_sym >= RING_SYMBOLS
+        carrier = -2400.0 + (317.0 * i) % 4800.0
+        latest = carrier / SWEEP_HZ_PER_S + 1.0
+        if 0 <= carrier and latest <= total_s - 2.0:
+            checked += 1
+            check(n_sym >= 0.99 * 72000 * (total_s - latest),
+                  f"(g) stream {i} (carrier {carrier:+.0f} Hz): {n_sym} "
+                  f"symbols, a lock by {latest:.2f} s gives "
+                  f"{72000 * (total_s - latest):.0f}")
+    check(checked >= 100, f"(g) only {checked} streams held to a lower bound")
+    say(f"(g) serve_fleet {' '.join(SERVE_ARGS)}: exit 0 straight "
+        f"({secs_a:.1f} s in all) and stopped at chain {SERVE_KILL_AT} "
+        f"({secs_k:.1f} s) then resumed ({secs_r:.1f} s); 256 .s files "
+        f"byte-identical between the two; {chains} chains of "
+        f"{feed_s * 1e3:.0f} ms, {locked}/254 live streams locked, "
+        f"{checked} early lockers within 1 % of their nominal count, dead "
+        f"antennas wrote {sizes[0]} and {sizes[1]} bytes; 0 spans recovered; "
+        f"serving rate {m.group(4)} Msamples/s over {m.group(5)} s "
+        f"(synthesis and start-up excluded) on {card}")
+
+
 def kernel(mode: dict):
     """The wrapper of mode's kernel; its .launches is the kernel's count."""
     from meteor_demod_tpu_torch.kernels import block_demod as kb
@@ -336,19 +566,26 @@ def kernel(mode: dict):
 
 
 def main_path(cfg, dev, smi: str, mode: dict, other: dict) -> int:
-    """Drive one main path (fleet, then CLI) with the launch and replay
-    counts set to 0 just before it; return its kernel's launches."""
+    """Drive one mode's main paths (fleet loop, CLI, fleet driver and its
+    checkpoint), each with the launch and replay counts set to 0 just before
+    it and read just after; return the sum of its kernel's launches."""
     from meteor_demod_tpu_torch.demod.pipeline import StreamDemodulator
     suffix = "-oq" if cfg.oqpsk else ""
-    kernel(mode).launches = kernel(other).launches = 0
-    StreamDemodulator.replayed_blocks = 0
-    phase_c(cfg, dev, smi, "c" + suffix)
-    phase_d(cfg, dev, smi, "d" + suffix)
-    launches = kernel(mode).launches
-    check(launches > 0, f"the {mode['name']} path never launched its kernel")
-    check(kernel(other).launches == 0,
-          f"the {mode['name']} path launched {other['name']}")
-    return launches
+    total = 0
+    for phase, tag in ((phase_c, "c"), (phase_d, "d"), (phase_ef, "e")):
+        kernel(mode).launches = kernel(other).launches = 0
+        StreamDemodulator.replayed_blocks = 0
+        phase(cfg, dev, smi, tag + suffix)
+        launches = kernel(mode).launches
+        check(launches > 0, f"({tag + suffix}) the {mode['name']} path never "
+              f"launched its kernel")
+        check(kernel(other).launches == 0,
+              f"({tag + suffix}) the {mode['name']} path launched "
+              f"{other['name']}")
+        check(StreamDemodulator.replayed_blocks == 0,
+              f"({tag + suffix}) blocks were replayed on the host")
+        total += launches
+    return total
 
 
 def main() -> int:
@@ -379,6 +616,7 @@ def main() -> int:
     for m, other in (("qpsk", "oqpsk"), ("oqpsk", "qpsk")):
         rec[m]["launches"] = main_path(cfgs[m], dev, smi, MODES[m],
                                        MODES[other])
+    phase_g(smi)
 
     say(json.dumps({"kernels": [{
         "name": MODES[m]["name"], "route": "cuda", "source": KERNEL_SOURCE,

@@ -13,8 +13,11 @@ thread prints status. The demodulator runs on the CUDA card;
 METEOR_DEMOD_PLATFORM=cpu runs it on the CPU instead. Without a card and
 without that setting the CLI raises: it never falls back to the CPU.
 
-Not ported yet (each exits 1 with one line on stderr): -T/--turbo,
---checkpoint and the TUI (non-batch mode).
+--checkpoint <file> resumes from <file> when it exists and saves the state
+there at the end, so split captures demodulate as one continuous stream.
+
+Not ported yet (each exits 1 with one line on stderr): -T/--turbo and the
+TUI (non-batch mode).
 """
 
 from __future__ import annotations
@@ -25,16 +28,14 @@ import sys
 import threading
 
 import numpy as np
-import torch
 
 from . import __version__
 from .config import DemodConfig
 from .demod.pipeline import StreamDemodulator, quantize_symbols
+from .io.checkpoint import load_checkpoint, save_checkpoint
 from .io.wav import open_input, read_sample_blocks
 from .io.writer import SymbolWriter
-from .utils import gen_fname, human_to_float
-
-PLATFORM_ENV = "METEOR_DEMOD_PLATFORM"
+from .utils import gen_fname, human_to_float, select_device
 
 SHORTOPTS = "Bb:d:f:hm:o:O:qR:r:s:S:T:v"
 LONGOPTS = [
@@ -65,6 +66,10 @@ Advanced options:
    -O, --oversamp <mult>   Set the interpolation factor to <mult> (default: 5)
 
 Extensions (not in the reference):
+       --checkpoint <file> Resume from <file> if it exists and save the
+                           demodulator state there at the end: captures
+                           split over several runs demodulate as one
+                           continuous stream
        --sweep-rescue <s>  Escape the acquisition sweep's dead zone: after
                            <s> seconds of unlocked signal, restart the
                            sweep from +fmax downward (a full downward
@@ -75,8 +80,8 @@ Extensions (not in the reference):
                            the kick for exact reference acquisition
                            behavior
 
-Not ported yet (exit 1): -T/--turbo, --checkpoint, and the TUI (run with
--B, --stdout or stdin input).
+Not ported yet (exit 1): -T/--turbo and the TUI (run with -B, --stdout or
+stdin input).
 
 Device: the CUDA card; METEOR_DEMOD_PLATFORM=cpu runs on the CPU.
 """
@@ -256,26 +261,10 @@ class DemodRunner:
                 d.pll_locked)
 
 
-def select_device() -> torch.device:
-    """The CUDA card, or the CPU when METEOR_DEMOD_PLATFORM=cpu. Raises when
-    the card is asked for (the default) and CUDA is not available."""
-    platform = os.environ.get(PLATFORM_ENV, "").strip().lower()
-    if platform == "cpu":
-        return torch.device("cpu")
-    if platform not in ("", "cuda", "gpu"):
-        raise ValueError(f"{PLATFORM_ENV}={platform!r}: use cpu or cuda")
-    if not torch.cuda.is_available():
-        raise RuntimeError(f"CUDA is not available; set {PLATFORM_ENV}=cpu "
-                           f"to demodulate on the CPU")
-    return torch.device("cuda")
-
-
 def _not_ported(opts: Options) -> str | None:
     """The one-line refusal for an option this port does not run yet."""
     if opts.turbo_chunks is not None:
         return "-T/--turbo is not ported to meteor_demod_tpu_torch yet"
-    if opts.checkpoint_path is not None:
-        return "--checkpoint is not ported to meteor_demod_tpu_torch yet"
     if not opts.batch and opts.input_path != "-":
         return ("the TUI is not ported to meteor_demod_tpu_torch yet; "
                 "run with -B")
@@ -287,6 +276,10 @@ def main(argv: list[str] | None = None) -> int:
     opts = parse_args(argv)
     if isinstance(opts, int):
         return opts
+    if opts.checkpoint_path is not None and opts.turbo_chunks is not None:
+        sys.stderr.write("--checkpoint cannot be combined with -T/--turbo "
+                         "(the turbo path is whole-file)\n")
+        return 1
     refusal = _not_ported(opts)
     if refusal:
         sys.stderr.write(refusal + "\n")
@@ -335,6 +328,22 @@ def main(argv: list[str] | None = None) -> int:
 
     demod = StreamDemodulator(cfg, device,
                               sweep_rescue_s=opts.sweep_rescue_s)
+    if opts.checkpoint_path is not None and os.path.exists(
+            opts.checkpoint_path):
+        resumed = load_checkpoint(opts.checkpoint_path, device)
+        if resumed.cfg != cfg:
+            sys.stderr.write(
+                f"checkpoint {opts.checkpoint_path} was written with a "
+                f"different configuration; refusing to resume\n")
+            return 1
+        demod = resumed
+        # The loader builds a default StreamDemodulator; re-apply the
+        # run's policy flags (the carry and counters stay as saved).
+        demod.sweep_rescue_s = float(opts.sweep_rescue_s)
+        if not opts.quiet:
+            print(f"Resumed from {opts.checkpoint_path} "
+                  f"({demod.symbols_out} symbols so far)",
+                  file=sys.stderr if opts.stdout_mode else sys.stdout)
 
     # File length probe (main.c:190-193).
     file_len = 0
@@ -375,6 +384,11 @@ def main(argv: list[str] | None = None) -> int:
         samples_file.close()
     if runner.error is not None:
         raise runner.error
+    if opts.checkpoint_path is not None:
+        save_checkpoint(opts.checkpoint_path, demod)
+        if not opts.quiet:
+            print(f"Checkpoint saved to {opts.checkpoint_path}",
+                  file=sys.stderr if opts.stdout_mode else sys.stdout)
     return 0
 
 

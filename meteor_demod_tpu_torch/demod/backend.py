@@ -18,13 +18,16 @@ import torch
 from ..config import DemodConfig
 from ..dsp.fir import make_fir_banks, polyphase_fir_block
 from ..kernels.block_demod import block_demod, block_demod_torch
+from ..utils import select_device
 
 BACKENDS = ("auto", "cuda", "torch")
 
 
-def make_batch_demod(cfg: DemodConfig, batch: int, device="cpu",
+def make_batch_demod(cfg: DemodConfig, batch: int, device=None,
                      backend: str = "auto") -> Callable:
-    """Batched block demodulator for `batch` streams on `device`.
+    """Batched block demodulator for `batch` streams on `device` (None: the
+    CUDA card, or the CPU under METEOR_DEMOD_PLATFORM=cpu;
+    utils.select_device).
 
     backend: "auto" runs the CUDA kernel (QPSK or OQPSK, by cfg.oqpsk) for
     a CUDA device and the plain torch recurrence for a CPU device; "cuda"
@@ -32,7 +35,7 @@ def make_batch_demod(cfg: DemodConfig, batch: int, device="cpu",
     (the reference the kernel is checked against). A single stream is
     batch=1."""
     cfg.validate()
-    device = torch.device(device)
+    device = select_device(device)
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "cuda" and device.type != "cuda":

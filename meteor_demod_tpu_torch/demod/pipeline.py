@@ -21,6 +21,7 @@ import torch
 from ..config import DemodConfig
 from ..constants import SWEEP_STEP
 from ..dsp.fir import f32_to_iq, iq_to_f32
+from ..utils import select_device
 from .backend import make_batch_demod
 from .state import BlockOutput, DemodCarry, batch_carry, carry_to_numpy
 from . import scalar
@@ -78,6 +79,21 @@ def scalar_state_to_carry(cfg: DemodConfig, st: dict, device) -> DemodCarry:
         for k, v in leaves.items()})
 
 
+def oracle_replay(cfg: DemodConfig, x: np.ndarray, st: dict
+                  ) -> tuple[np.ndarray, dict]:
+    """Recompute x (complex64, whole blocks or a tail) exactly with the
+    scalar oracle from state st, block by block, so that the timing gate's
+    rounding at block boundaries matches the block path. Returns the symbols
+    and the state after x."""
+    L = cfg.block_len
+    parts = []
+    for i in range(0, len(x), L):
+        sym, st = scalar.demod_stream_np(cfg, x[i:i + L], st)
+        parts.append(sym)
+    return (np.concatenate(parts) if parts
+            else np.zeros(0, dtype=_SYM_DTYPE)), st
+
+
 def _fetch(carry: DemodCarry, outs) -> tuple[dict, BlockOutput]:
     """Device -> host: the flags and telemetry leaves of a batch-1 carry and
     the BlockOutput (or list of them, concatenated in order)."""
@@ -115,11 +131,12 @@ class StreamDemodulator:
 
     replayed_blocks = 0
 
-    def __init__(self, cfg: DemodConfig, device="cpu",
+    def __init__(self, cfg: DemodConfig, device=None,
                  sweep_rescue_s: float = 0.0):
         cfg.validate()
         self.cfg = cfg
-        self.device = torch.device(device)
+        # None: the CUDA card, or the CPU under METEOR_DEMOD_PLATFORM=cpu.
+        self.device = select_device(device)
         self._fn = make_batch_demod(cfg, 1, self.device)
         self._carry = batch_carry(cfg, 1, self.device)
         self._pending = np.zeros(0, dtype=np.complex64)
@@ -257,18 +274,13 @@ class StreamDemodulator:
         return torch.as_tensor(iq_to_f32(x), device=self.device)
 
     def _oracle(self, x: np.ndarray, prev_carry: DemodCarry) -> np.ndarray:
-        """Recompute x exactly with the scalar oracle from prev_carry, block
-        by block (so the timing-gate rounding at block boundaries matches
-        the block path), and install the resulting carry."""
-        L = self.cfg.block_len
-        st = carry_to_scalar_state(self.cfg, prev_carry)
-        parts = []
-        for i in range(0, len(x), L):
-            sym, st = scalar.demod_stream_np(self.cfg, x[i:i + L], st)
-            parts.append(sym)
+        """Recompute x exactly with the scalar oracle from prev_carry
+        (oracle_replay) and install the resulting carry."""
+        symbols, st = oracle_replay(
+            self.cfg, x, carry_to_scalar_state(self.cfg, prev_carry))
         self._carry = scalar_state_to_carry(self.cfg, st, self.device)
         self._publish_telemetry()
-        return np.concatenate(parts)
+        return symbols
 
     def _count_replay(self, n_blocks: int) -> None:
         self.fallback_blocks += n_blocks
@@ -347,19 +359,27 @@ class StreamDemodulator:
         return out
 
 
-def demod_array(cfg: DemodConfig, x: np.ndarray, device="cpu") -> np.ndarray:
-    """One-shot demodulation of a full array (tests / offline use)."""
+def demod_array(cfg: DemodConfig, x: np.ndarray, device=None) -> np.ndarray:
+    """One-shot demodulation of a full array (tests / offline use) on
+    `device` (None: the card, as StreamDemodulator)."""
     d = StreamDemodulator(cfg, device)
     out = [d.process(x), d.finish()]
     return np.concatenate(out)
 
 
+def quantize(x):
+    """The .s byte math of one soft component (main.c:305-306): x/2, clamped
+    to +-127, truncated toward zero. One rounding per operation, the same on
+    a float32 torch tensor (any device) and a float32 numpy array; the
+    caller casts to int8."""
+    if isinstance(x, torch.Tensor):
+        return torch.trunc(torch.clamp(x * 0.5, -127.0, 127.0))
+    return np.trunc(np.clip(x * np.float32(0.5), -127.0, 127.0))
+
+
 def quantize_symbols(symbols: np.ndarray) -> np.ndarray:
-    """Soft symbols -> interleaved int8 bytes (main.c:305-306 semantics:
-    component/2, clamped to +-127, truncated toward zero)."""
+    """Soft symbols -> interleaved int8 bytes (quantize each component)."""
     out = np.empty(2 * len(symbols), dtype=np.int8)
-    re = np.trunc(np.clip(symbols["re"] * np.float32(0.5), -127.0, 127.0))
-    im = np.trunc(np.clip(symbols["im"] * np.float32(0.5), -127.0, 127.0))
-    out[0::2] = re.astype(np.int8)
-    out[1::2] = im.astype(np.int8)
+    out[0::2] = quantize(symbols["re"]).astype(np.int8)
+    out[1::2] = quantize(symbols["im"]).astype(np.int8)
     return out

@@ -16,6 +16,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils import select_device
+
 # Flag bits: any nonzero flag means "this block must be recomputed by the
 # exact scalar fallback" — a should-never-happen safety net.
 # FLAG_WINDOW_MISS: on the TPU, a gate fire landed outside the candidate
@@ -66,6 +68,18 @@ class BlockOutput:
     locked_once: torch.Tensor  # int32, locked_once state after this step
 
 
+@dataclasses.dataclass
+class PackedOutput:
+    """Device-quantized per-step outputs (fleet packed_output=True): the .s
+    byte values computed on the device with quantize_symbols' exact math
+    (component/2, clamp +-127, truncate toward zero; main.c:305-306), so the
+    fleet's readback is int8 end to end, a quarter of BlockOutput's bytes."""
+    sym_i: torch.Tensor        # int8 quantized I
+    sym_q: torch.Tensor        # int8 quantized Q
+    valid: torch.Tensor        # int8 0/1
+    locked_once: torch.Tensor  # int8
+
+
 def _init_values(cfg) -> dict:
     """Initial leaf values, mirroring the reference init paths (pll.c:24-44,
     timing.c:18-27, agc.c:9-10, calloc'd filter memory filter.c:15)."""
@@ -77,8 +91,10 @@ def _init_values(cfg) -> dict:
         inphase=0.0, slot=1, tick=0, flags=0)
 
 
-def batch_carry(cfg, batch: int, device="cpu") -> DemodCarry:
-    """Initial carry with a leading (batch,) axis on every leaf."""
+def batch_carry(cfg, batch: int, device=None) -> DemodCarry:
+    """Initial carry with a leading (batch,) axis on every leaf, on `device`
+    (None: utils.select_device's default, the card)."""
+    device = select_device(device)
     leaves = {}
     for k, v in _init_values(cfg).items():
         dtype = torch.float32 if isinstance(v, float) else torch.int32
@@ -88,7 +104,7 @@ def batch_carry(cfg, batch: int, device="cpu") -> DemodCarry:
     return DemodCarry(**leaves)
 
 
-def init_carry(cfg, device="cpu") -> DemodCarry:
+def init_carry(cfg, device=None) -> DemodCarry:
     """Initial single-stream carry (0-d leaves, (taps-1, 2) FIR tail)."""
     c = batch_carry(cfg, 1, device)
     return DemodCarry(**{k: getattr(c, k)[0] for k in CARRY_FIELDS})
@@ -100,8 +116,10 @@ def carry_to_numpy(carry: DemodCarry) -> dict:
     return {k: getattr(carry, k).detach().cpu().numpy() for k in CARRY_FIELDS}
 
 
-def carry_from_numpy(leaves: dict, device="cpu") -> DemodCarry:
-    """Dict of numpy leaves (carry_to_numpy of either package) -> carry."""
+def carry_from_numpy(leaves: dict, device=None) -> DemodCarry:
+    """Dict of numpy leaves (carry_to_numpy of either package) -> carry on
+    `device` (None: the card, as batch_carry)."""
+    device = select_device(device)
     out = {}
     for k in CARRY_FIELDS:
         a = np.asarray(leaves[k])

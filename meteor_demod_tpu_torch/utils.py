@@ -1,8 +1,32 @@
-"""Formatting and CLI helper utilities (reference: utils.c)."""
+"""Formatting and CLI helper utilities (reference: utils.c), and the
+device every entry point defaults to."""
 
 from __future__ import annotations
 
+import os
 import time
+
+import torch
+
+PLATFORM_ENV = "METEOR_DEMOD_PLATFORM"
+
+
+def select_device(device=None) -> torch.device:
+    """The device an entry point runs on. A given `device` is taken as it
+    is. None means the CUDA card, or the CPU when METEOR_DEMOD_PLATFORM=cpu;
+    it raises when the card is wanted and CUDA is not available, so no
+    caller drops to the CPU without asking for it."""
+    if device is not None:
+        return torch.device(device)
+    platform = os.environ.get(PLATFORM_ENV, "").strip().lower()
+    if platform == "cpu":
+        return torch.device("cpu")
+    if platform not in ("", "cuda", "gpu"):
+        raise ValueError(f"{PLATFORM_ENV}={platform!r}: use cpu or cuda")
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"CUDA is not available; set {PLATFORM_ENV}=cpu "
+                           f"to demodulate on the CPU")
+    return torch.device("cuda")
 
 
 def gen_fname(t: float | None = None) -> str:

@@ -90,7 +90,7 @@ def fx():
         carry = sc
     port = []
     for blk in blocks:
-        c, o = block_demod_torch(cfg, carry_from_numpy(blk["entry"]),
+        c, o = block_demod_torch(cfg, carry_from_numpy(blk["entry"], "cpu"),
                                  torch.tensor(blk["Ft"]))
         port.append((carry_to_numpy(c),
                      {k: getattr(o, k).numpy() for k in _OUT}))
@@ -136,7 +136,7 @@ def test_fixture_exercises_lock_and_sweep(fx):
 def test_plain_chained_matches_jax(fx):
     """The port carries its own carry across the blocks."""
     cfg = fx["cfg"]
-    carry = carry_from_numpy(fx["blocks"][0]["entry"])
+    carry = carry_from_numpy(fx["blocks"][0]["entry"], "cpu")
     for blk in fx["blocks"]:
         carry, out = block_demod_torch(cfg, carry, torch.tensor(blk["Ft"]))
         got = (carry_to_numpy(carry), {k: getattr(out, k).numpy()
@@ -177,7 +177,7 @@ def test_plain_matches_oracle_bitwise(fx, oracle, block):
 def test_carry_round_trip_bitwise(fx):
     for blk in fx["blocks"]:
         d = blk["scan"][0]
-        back = carry_to_numpy(carry_from_numpy(d))
+        back = carry_to_numpy(carry_from_numpy(d, "cpu"))
         assert list(back) == list(d)
         for k in d:
             assert back[k].dtype == d[k].dtype, k
@@ -189,7 +189,7 @@ def test_wrapper_on_cpu_runs_plain(fx):
     not count it as a launch."""
     cfg, blk = fx["cfg"], fx["blocks"][0]
     before = block_demod.launches
-    c, o = block_demod(cfg, carry_from_numpy(blk["entry"]),
+    c, o = block_demod(cfg, carry_from_numpy(blk["entry"], "cpu"),
                        torch.tensor(blk["Ft"]))
     assert block_demod.launches == before
     pc, po = fx["port"][0]
@@ -206,7 +206,7 @@ def test_backend_matches_jax_scan(fx):
     the contract plus the FIR's float32 rounding (~1e-5 relative)."""
     cfg = fx["cfg"]
     fn = make_batch_demod(cfg, B, "cpu")
-    carry = carry_from_numpy(fx["blocks"][0]["entry"])
+    carry = carry_from_numpy(fx["blocks"][0]["entry"], "cpu")
     for i, blk in enumerate(fx["blocks"]):
         carry, out = fn(carry, torch.tensor(blk["x"]))
         got = (carry_to_numpy(carry), {k: getattr(out, k).numpy()
@@ -243,8 +243,7 @@ def test_config_variant_plain_matches_jax_scan(name):
         Ft, _ = polyphase_fir_block_tmajor(
             jnp.asarray(xb.transpose(1, 0, 2)),
             carry.fir_tail.transpose(1, 0, 2), banks)
-        c, o = block_demod_torch(cfg, carry_from_numpy(
-            jax_carry_to_numpy(carry)), torch.tensor(np.asarray(Ft)))
+        c, o = block_demod_torch(cfg, carry_from_numpy(jax_carry_to_numpy(carry), "cpu"), torch.tensor(np.asarray(Ft)))
         carry, so = scan_fn(carry, jnp.asarray(xb))
         _assert_decisions_and_values(
             (carry_to_numpy(c), {k: getattr(o, k).numpy() for k in _OUT}),

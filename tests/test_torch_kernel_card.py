@@ -335,7 +335,7 @@ def test_backend_selection_errors():
     # (test_backend_auto_launches_oqpsk_kernel_on_card).
     before = (block_demod.launches, block_demod_oqpsk.launches)
     _, out = make_batch_demod(OQ_CFG, 1, "cpu")(
-        batch_carry(OQ_CFG, 1), torch.zeros((1, L, 2)))
+        batch_carry(OQ_CFG, 1, "cpu"), torch.zeros((1, L, 2)))
     assert out.valid.shape == (1, OQ_CFG.steps_per_block + 1)
     assert (block_demod.launches, block_demod_oqpsk.launches) == before
     with pytest.raises(ValueError, match="no block_demod kernel"):
@@ -374,3 +374,81 @@ def test_library_is_keyed_by_source(monkeypatch, tmp_path):
     (tmp_path / "k.cu").write_text("// two\n")
     assert _build.library_path("k") != first
     assert first.parent == _build.BUILD_DIR
+
+
+# ---------------------------------------------------------- the fleet driver
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [CFG, OQ_CFG], ids=["qpsk", "oqpsk"])
+def test_fleet_driver_card_matches_cpu_decisions(cuda_device, cfg):
+    """FleetDemodulator on the card (chained, raw i16 ingest) against the
+    same fleet on the CPU: one kernel launch per block, decisions bitwise,
+    values within the FIRs' difference (cuDNN against the CPU convolution)."""
+    from meteor_demod_tpu_torch.parallel.mesh import FleetDemodulator
+    kernel = block_demod_oqpsk if cfg.oqpsk else block_demod
+    B, K, n_chains = 8, 3, 4
+    raw = np.round(_iq(B, n_chains * K * L, cfg)).astype(np.int16)
+    card = FleetDemodulator(cfg, B, cuda_device, chain_blocks=K, ingest="i16")
+    host = FleetDemodulator(cfg, B, "cpu", chain_blocks=K, ingest="i16")
+    before = kernel.launches
+    for c in range(n_chains):
+        span = np.ascontiguousarray(raw[:, c * K * L:(c + 1) * K * L])
+        got, want = card.process_blocks(span), host.process_blocks(span)
+        np.testing.assert_array_equal(got.valid, want.valid)
+        np.testing.assert_array_equal(got.locked_once, want.locked_once)
+        v = want.valid.astype(bool)
+        np.testing.assert_allclose(got.sym_re[v], want.sym_re[v], rtol=5e-4,
+                                   atol=0.05)
+        np.testing.assert_allclose(got.sym_im[v], want.sym_im[v], rtol=5e-4,
+                                   atol=0.05)
+        assert card.telemetry["symbols"] == host.telemetry["symbols"]
+        assert card.telemetry["locked_streams"] == host.telemetry[
+            "locked_streams"]
+    assert kernel.launches - before == n_chains * K
+    assert card.recovered_streams == host.recovered_streams == 0
+    a, b = carry_to_numpy(card.carry), carry_to_numpy(host.carry)
+    for k in ("locked", "locked_once", "flags", "slot", "tick"):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.gpu
+def test_packed_output_on_card_matches_host_quantizer(cuda_device):
+    """The device quantizer's int8 rows equal, bitwise, quantize_symbols on
+    the float rows of the same fleet run unpacked on the card, through a
+    forced flag's oracle recovery too; and on edge values the card's
+    quantize equals numpy's."""
+    from meteor_demod_tpu_torch.demod.pipeline import (quantize,
+                                                       quantize_symbols)
+    from meteor_demod_tpu_torch.parallel.mesh import FleetDemodulator
+    B, K = 8, 2
+    x = _iq(B, 2 * K * L)
+    plain = FleetDemodulator(CFG, B, cuda_device, chain_blocks=K)
+    packed = FleetDemodulator(CFG, B, cuda_device, chain_blocks=K,
+                              packed_output=True)
+    for c in range(2):
+        if c == 1:
+            for f in (plain, packed):
+                f.carry.flags[3] |= 2
+        span = x[:, c * K * L:(c + 1) * K * L]
+        a, b = plain.process_blocks(span), packed.process_blocks(span)
+        np.testing.assert_array_equal(b.valid, a.valid)
+        np.testing.assert_array_equal(b.locked_once, a.locked_once)
+        for s in range(B):
+            v = a.valid[s].astype(bool)
+            sym = np.zeros(int(v.sum()), dtype=[("re", np.float32),
+                                                ("im", np.float32),
+                                                ("locked_once", np.int32)])
+            sym["re"], sym["im"] = a.sym_re[s][v], a.sym_im[s][v]
+            want = quantize_symbols(sym)
+            np.testing.assert_array_equal(b.sym_i[s][v], want[0::2])
+            np.testing.assert_array_equal(b.sym_q[s][v], want[1::2])
+    assert packed.recovered_streams == plain.recovered_streams == 1
+    edge = np.float32([254.0, 253.99, 254.01, -254.0, -255.5, 1.999, -1.999,
+                       0.0, -0.0, 300.0, -300.0, 1e30, np.inf, -np.inf,
+                       1e-40, np.nan])
+    with np.errstate(invalid="ignore"):
+        got = quantize(torch.tensor(edge, device=cuda_device))
+        np.testing.assert_array_equal(got.cpu().numpy(), quantize(edge))
+        np.testing.assert_array_equal(
+            got.to(torch.int8).cpu().numpy()[:-1],
+            quantize(edge).astype(np.int8)[:-1])

@@ -152,7 +152,7 @@ def fx():
         carry = sc
     port = []
     for blk in blocks:
-        c, o = block_demod_torch(cfg, carry_from_numpy(blk["entry"]),
+        c, o = block_demod_torch(cfg, carry_from_numpy(blk["entry"], "cpu"),
                                  torch.tensor(blk["Ft"]))
         port.append((carry_to_numpy(c),
                      {k: getattr(o, k).numpy() for k in _OUT}))
@@ -208,7 +208,7 @@ def test_plain_chained_matches_jax(fx):
     """The port carries its own carry (inphase and slot included) across
     the blocks."""
     cfg = fx["cfg"]
-    carry = carry_from_numpy(fx["blocks"][0]["entry"])
+    carry = carry_from_numpy(fx["blocks"][0]["entry"], "cpu")
     for blk in fx["blocks"]:
         carry, out = block_demod_torch(cfg, carry, torch.tensor(blk["Ft"]))
         got = (carry_to_numpy(carry), {k: getattr(out, k).numpy()
@@ -254,7 +254,8 @@ def test_wrapper_on_cpu_runs_plain(fx):
     before = (block_demod.launches, block_demod_oqpsk.launches)
     pc, po = fx["port"][0]
     for fn in (block_demod, block_demod_oqpsk):
-        c, o = fn(cfg, carry_from_numpy(blk["entry"]), torch.tensor(blk["Ft"]))
+        c, o = fn(cfg, carry_from_numpy(blk["entry"], "cpu"),
+                  torch.tensor(blk["Ft"]))
         for k in _OUT:
             np.testing.assert_array_equal(getattr(o, k).numpy(), po[k])
         for k, v in carry_to_numpy(c).items():
@@ -263,7 +264,7 @@ def test_wrapper_on_cpu_runs_plain(fx):
     assert (block_demod.launches, block_demod_oqpsk.launches) == before
     with pytest.raises(ValueError, match="OQPSK config"):
         block_demod_oqpsk(DemodConfig(samplerate=FS, block_len=L),
-                          carry_from_numpy(blk["entry"]),
+                          carry_from_numpy(blk["entry"], "cpu"),
                           torch.tensor(blk["Ft"]))
 
 
@@ -272,7 +273,7 @@ def test_backend_matches_jax_scan(fx):
     over both blocks against the JAX scan: decisions bitwise, values within
     the contract plus the FIR's float32 rounding (~1e-5 relative)."""
     fn = make_batch_demod(fx["cfg"], B, "cpu")
-    carry = carry_from_numpy(fx["blocks"][0]["entry"])
+    carry = carry_from_numpy(fx["blocks"][0]["entry"], "cpu")
     for i, blk in enumerate(fx["blocks"]):
         carry, out = fn(carry, torch.tensor(blk["x"]))
         got = (carry_to_numpy(carry), {k: getattr(out, k).numpy()
@@ -295,7 +296,7 @@ def test_deferred_prefire_flags_like_scan(fx):
     jc = jax_batch_carry(fx["jcfg"], B)._replace(
         **{k: jnp.asarray(v) for k, v in entry.items()})
     sc, so = scan_fn(jc, jnp.asarray(blk["x"]))
-    c, o = block_demod_torch(fx["cfg"], carry_from_numpy(entry),
+    c, o = block_demod_torch(fx["cfg"], carry_from_numpy(entry, "cpu"),
                              torch.tensor(blk["Ft"]))
     got = carry_to_numpy(c)
     np.testing.assert_array_equal(got["flags"] & FLAG_WINDOW_MISS,
@@ -343,7 +344,7 @@ def test_flagged_block_replays_through_oracle_like_jax():
     jd = JaxDemod(JaxConfig(block_len=L, **OQ))
     jd._carry = jd._carry._replace(flags=jd._carry.flags | FLAG_WINDOW_MISS)
     ref = _run(jd, x)
-    d = StreamDemodulator(DemodConfig(block_len=L, **OQ))
+    d = StreamDemodulator(DemodConfig(block_len=L, **OQ), "cpu")
     d._carry.flags |= FLAG_WINDOW_MISS
     before = StreamDemodulator.replayed_blocks
     got = _run(d, x)

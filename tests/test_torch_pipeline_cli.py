@@ -93,7 +93,7 @@ def test_flagged_block_replays_through_oracle_like_jax(n_blocks, replayed):
     jd = JaxDemod(JaxConfig(samplerate=230400, block_len=L))
     jd._carry = jd._carry._replace(flags=jd._carry.flags | 2)
     ref = _run(jd, x)
-    d = StreamDemodulator(DemodConfig(samplerate=230400, block_len=L))
+    d = StreamDemodulator(DemodConfig(samplerate=230400, block_len=L), "cpu")
     d._carry.flags |= 2
     before = StreamDemodulator.replayed_blocks
     got = _run(d, x)
@@ -110,10 +110,10 @@ def test_flagged_block_replays_through_oracle_like_jax(n_blocks, replayed):
 def test_chunk_invariance():
     cfg = DemodConfig(samplerate=230400, block_len=L)
     x = _signal(10 * L + 777, seed=5)
-    one_shot = _run(StreamDemodulator(cfg), x)
+    one_shot = _run(StreamDemodulator(cfg, "cpu"), x)
     rng = np.random.default_rng(0)
     chunks = rng.integers(1, 3000, size=12)
-    chunked = _run(StreamDemodulator(cfg), x, chunks)
+    chunked = _run(StreamDemodulator(cfg, "cpu"), x, chunks)
     np.testing.assert_array_equal(chunked, one_shot)
 
 
@@ -124,7 +124,7 @@ def test_sweep_rescue_kick_matches_jax():
     chunks = [2 * L, 2 * L]
     ref = JaxDemod(JaxConfig(samplerate=230400, block_len=L),
                    sweep_rescue_s=0.005)
-    got = StreamDemodulator(DemodConfig(samplerate=230400, block_len=L),
+    got = StreamDemodulator(DemodConfig(samplerate=230400, block_len=L), "cpu",
                             sweep_rescue_s=0.005)
     r, g = _run(ref, x, chunks), _run(got, x, chunks)
     assert len(g) == len(r)
@@ -264,7 +264,6 @@ def test_cli_output_is_the_oracle_bitwise(fixtures, port_cli):
 
 @pytest.mark.parametrize("args, msg", [
     (["-B", "-T", "4"], "-T/--turbo"),
-    (["-B", "--checkpoint", "c.npz"], "--checkpoint"),
     ([], "the TUI"),
 ])
 def test_cli_refuses_unported(fixtures, args, msg, capsys):
