@@ -5,8 +5,8 @@
                             [--ab OTHER.cu [OTHER2.cu ...]]
 
 Both modes (230.4 ksps, block_len 8192: QPSK 72 ksym/s and OQPSK 80 ksym/s).
-Prints one line per figure, each taken in this run. Sections (all but `ab`
-by default):
+Prints one line per figure, each taken in this run. Sections (all but `ab`,
+`turbo` and `lanes` by default):
   sweep   each recurrence kernel's ms per block against the stream count B
           (CUDA events, 10 launches each; Ft tiled from 128 simulated
           streams), and B = 128 on an Ft of 32 distinct streams tiled four
@@ -31,6 +31,20 @@ by default):
   stream  a torch.profiler breakdown of the stream demodulator
           (StreamDemodulator, B = 1, ~10 s of signal, per mode), with its
           count of blocks replayed on the host;
+  turbo   one recording across the kernel's lanes, per mode:
+          demod_array_turbo(strict=True) on 120 s of signal (32, the 105
+          lanes of the CLI's -T 0, 128 and 512 lanes) and on a full 600 s
+          pass (32, 128, 512 and 2048 lanes): converged, passes, fallback,
+          wall seconds and their split into upload, warm-up, each pass,
+          readback, assembly and the sequential tail (the module's own
+          stages, timed from outside), beside demod_array on the 120 s; and
+          the span-mode stream (32 lanes x 16 blocks a span) over the 120 s
+          fed in 8192-sample pieces: ms per span in span_submit and
+          span_finish, verified lanes;
+  lanes   why a pass at the 105 lanes of -T 0 costs more than one at 128:
+          the kernel alone and the FIR alone, ms per block at B = 104, 105,
+          108 and 128 per mode (CUDA events, 20 calls a reading, the counts
+          in turns forward and back);
   ab      with --ab: the tree's csrc/block_demod.cu against each other
           source given (an earlier commit's copy, a variant under test),
           built with the same flags plus -Xptxas -v (registers and spills are
@@ -60,6 +74,9 @@ import numpy as np
 import torch
 
 SECTIONS = ("sweep", "fir", "fleet", "driver", "serving", "stream")
+OPT_IN = ("turbo", "lanes")    # only when named in --sections
+LANE_B = (104, 105, 108, 128)
+TURBO_RUNS = {120: (32, 105, 128, 512), 600: (32, 128, 512, 2048)}
 SWEEP_B = (1, 32, 128, 512, 1024, 4096, 16896, 33792)
 AB_B = (1, 128, 16896)
 
@@ -399,6 +416,170 @@ def section_stream(cfgs: dict, dev, res: dict) -> None:
                                      replayed=d.fallback_blocks)
 
 
+def section_lanes(cfgs: dict, dev, res: dict) -> None:
+    import chip_smoke as cs
+    from meteor_demod_tpu_torch.demod.state import batch_carry
+    from meteor_demod_tpu_torch.dsp.fir import (make_fir_banks,
+                                                polyphase_fir_block)
+    from meteor_demod_tpu_torch.kernels.block_demod import block_demod
+    for mode, cfg in cfgs.items():
+        x = cs.fleet_iq(cfg, 128, cfg.block_len, 7, dev)
+        banks = torch.as_tensor(make_fir_banks(cfg), device=dev)
+        runs = {}
+        for B in LANE_B:
+            xb = x[:B].contiguous()
+            c = batch_carry(cfg, B, dev)
+            Ft, _ = polyphase_fir_block(xb, c.fir_tail, banks)
+            block_demod(cfg, c, Ft)
+            runs[B] = dict(
+                kernel=lambda c=c, Ft=Ft: block_demod(cfg, c, Ft),
+                fir=lambda xb=xb, c=c: polyphase_fir_block(xb, c.fir_tail,
+                                                           banks))
+        ms = {B: dict(kernel=[], fir=[]) for B in LANE_B}
+        for order in (LANE_B, LANE_B[::-1]):
+            for B in order:
+                for part, fn in runs[B].items():
+                    ms[B][part].append(cs.cuda_ms(fn, 20))
+        for B in LANE_B:
+            print(f"{mode} B={B}: kernel {ms[B]['kernel'][0]:.4f} and "
+                  f"{ms[B]['kernel'][1]:.4f} ms, FIR {ms[B]['fir'][0]:.4f} "
+                  f"and {ms[B]['fir'][1]:.4f} ms per block", flush=True)
+        res[f"{mode}_lanes"] = ms
+
+
+@contextlib.contextmanager
+def turbo_stages(times: dict):
+    """Time demod_array_turbo's stages from outside: its upload, each pass
+    runner call (the first is the warm-up), the readback, the assembly and
+    the sequential tail or fallback. The card is waited for at the end of
+    every stage (the upload only queues its copies), so host clocks bound
+    it."""
+    from meteor_demod_tpu_torch.demod import turbo
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times.setdefault(key, []).append(time.perf_counter() - t0)
+            return out
+        return call
+
+    names = dict(to_device="upload", to_host="readback",
+                 _assemble_qpsk_gauge="assemble",
+                 _assemble_oqpsk_gauge="assemble", _sequential_from="tail")
+    saved = {n: getattr(turbo, n) for n in (*names, "make_pass_runner")}
+    for n, key in names.items():
+        setattr(turbo, n, timed(saved[n], key))
+    turbo.make_pass_runner = lambda *a, **kw: timed(
+        saved["make_pass_runner"](*a, **kw), "pass")
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(turbo, n, fn)
+
+
+def section_turbo(cfgs: dict, dev, res: dict) -> None:
+    """Turbo on a whole recording and span by span (see the module
+    docstring)."""
+    import chip_smoke as cs
+    from meteor_demod_tpu_torch.demod.pipeline import (StreamDemodulator,
+                                                       demod_array)
+    from meteor_demod_tpu_torch.demod.turbo import (default_warmup_blocks,
+                                                    demod_array_turbo)
+    for mode, cfg in cfgs.items():
+        L = cfg.block_len
+        piece = cs.tiled_signal(cfg, cs.PIECE_S).round()     # 16-bit levels
+        for seconds, lane_counts in TURBO_RUNS.items():
+            x = np.tile(piece, seconds // cs.PIECE_S)
+            demod_array_turbo(cfg, x[:64 * L], chunks=4)     # warm the card
+            if seconds == 120:
+                t0 = time.perf_counter()
+                n_seq = len(demod_array(cfg, x))
+                t_seq = time.perf_counter() - t0
+                print(f"{mode} {seconds} s sequential (demod_array): "
+                      f"{t_seq:.3f} s, {n_seq} symbols", flush=True)
+                res[f"{mode}_sequential_{seconds}s"] = t_seq
+            for lanes in lane_counts:
+                kb = len(x) // (lanes * L)
+                times: dict = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with turbo_stages(times):
+                    r = demod_array_turbo(cfg, x, chunks=lanes, strict=True)
+                wall = time.perf_counter() - t0
+                passes = times.get("pass", [0.0])
+                row = dict(
+                    lanes=lanes, kb=kb, kb_w=default_warmup_blocks(L, kb),
+                    converged=r.converged, passes=r.passes,
+                    fell_back=r.fell_back,
+                    fallback_samples=r.fallback_samples,
+                    symbols=len(r.symbols), wall_s=wall,
+                    upload_s=sum(times.get("upload", [])),
+                    warmup_s=passes[0], pass_s=passes[1:],
+                    readback_s=sum(times.get("readback", [])),
+                    assemble_s=sum(times.get("assemble", [])),
+                    tail_s=sum(times.get("tail", [])))
+                print(f"{mode} {seconds} s turbo {lanes:5d} lanes x {kb:4d} "
+                      f"blocks (warm-up {row['kb_w']}): converged "
+                      f"{r.converged}, {r.passes} passes, fallback "
+                      f"{r.fallback_samples} samples, wall {wall:.3f} s = "
+                      f"upload {row['upload_s']:.3f} + warm-up "
+                      f"{row['warmup_s']:.3f} + passes "
+                      f"{'/'.join(f'{t:.3f}' for t in row['pass_s'])} + "
+                      f"readback {row['readback_s']:.3f} + assembly "
+                      f"{row['assemble_s']:.3f} + tail {row['tail_s']:.3f} + "
+                      f"other; {1e3 * sum(row['pass_s']) / max(1, len(row['pass_s']) * kb):.3f}"
+                      f" ms a block in a pass", flush=True)
+                res[f"{mode}_turbo_{seconds}s_{lanes}"] = row
+            if seconds != 120:
+                continue
+            # Span by span, as the CLI's -T 32 on stdin feeds it.
+            d = StreamDemodulator(cfg, span_turbo=True, span_chunks=32)
+            spans, finishes = [], []
+            submit, finish = d._submit_span, d._finish_span
+
+            def timed_submit(span):
+                t0 = time.perf_counter()
+                pend = submit(span)
+                spans.append(dict(submit_ms=1e3 * (time.perf_counter() - t0),
+                                  lanes=0 if pend is None else pend.P,
+                                  passes=None if pend is None else pend.passes))
+                return pend
+
+            def timed_finish(pend):
+                t0 = time.perf_counter()
+                out = finish(pend)
+                finishes.append(1e3 * (time.perf_counter() - t0))
+                return out
+
+            d._submit_span, d._finish_span = timed_submit, timed_finish
+            t0 = time.perf_counter()
+            n_out = sum(len(d.process(x[at:at + 8192]))
+                        for at in range(0, len(x), 8192))
+            t_feed = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            n_out += len(d.finish())
+            t_fin = time.perf_counter() - t0
+            accepted = [sp for sp in spans if sp["lanes"]]
+            for sp, ms in zip(accepted, finishes):
+                sp["finish_ms"] = ms          # spans finish in submit order
+            for i, sp in enumerate(spans):
+                print(f"{mode} span {i}: submit {sp['submit_ms']:.1f} ms "
+                      f"({sp['passes']} passes), finish "
+                      f"{sp.get('finish_ms', float('nan')):.1f} ms, "
+                      f"{sp['lanes']}/32 lanes verified", flush=True)
+            print(f"{mode} span stream over {seconds} s in 8192-sample "
+                  f"pieces: {d.spans_run} spans, {d.span_fallbacks} "
+                  f"fallbacks, {n_out} symbols, feeding {t_feed:.3f} s, "
+                  f"finish() {t_fin:.3f} s", flush=True)
+            res[f"{mode}_span_stream"] = dict(
+                spans=spans, feed_s=t_feed, finish_s=t_fin,
+                spans_run=d.spans_run, fallbacks=d.span_fallbacks)
+        del x
+
+
 def section_ab(cfgs: dict, dev, res: dict, others: list[str]) -> None:
     """The tree's kernels against the sources in `others` (see the module
     docstring)."""
@@ -462,7 +643,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--json", help="also write the results to this file")
     ap.add_argument("--sections", default=",".join(SECTIONS),
-                    help="comma-separated subset of " + ",".join(SECTIONS))
+                    help="comma-separated subset of "
+                    + ",".join(SECTIONS + OPT_IN) + " (default: all but "
+                    + ",".join(OPT_IN) + ")")
     ap.add_argument("--ab", nargs="+", default=[], metavar="OTHER.cu",
                     help="time the tree's kernels against these sources")
     args = ap.parse_args()
@@ -484,7 +667,8 @@ def main() -> int:
         section_ab(cfgs, dev, res, args.ab)
     run = dict(sweep=section_sweep, fir=section_fir, fleet=section_fleet,
                driver=section_driver, serving=section_serving,
-               stream=section_stream)
+               stream=section_stream, turbo=section_turbo,
+               lanes=section_lanes)
     for name in filter(None, args.sections.split(",")):
         run[name](cfgs, dev, res)
 

@@ -12,13 +12,17 @@ Phases, one line each; any failed check raises and the script exits non-zero:
       simulated streams (carriers +50..+600 Hz, SNR 12-25 dB, DC offsets, one
       noise-only stream), 2 chained blocks, every output and carry leaf
       bitwise; then streams 0-1 against the numpy oracle; kernel and plain
-      times per block at B = 128 and B = 1, and the kernel's bound at
+      times per block at B = 128, the kernel's at B = 1, and its bound at
       B = 128 (bytes over the memory rate or operations over the fp32 rate,
       from this run's count of fires);
   (b-oq) the same for the OQPSK kernel at the OQPSK config (80 ksym/s
       interleaved, block_len 8192), with (S+1)-row outputs: the pre-fire must
       run on some stream (a symbol split across the block boundary), and
       the first such stream is checked against the oracle too;
+  (b-lanes), (b-lanes-oq) each kernel vs its plain version, bitwise in every
+      output and carry leaf, at the other lane counts the main paths launch
+      it with: 1 ((d), every sequential tail), 32 (the spans of (i)) and 105
+      ((h): no multiple of 4), on a block entered mid-stream;
   (c) the QPSK fleet width: 128 streams x 16 chained blocks through
       make_batch_demod on the card: no flags, symbol counts within 1 % of
       nominal, Msamples/s;
@@ -48,8 +52,27 @@ Phases, one line each; any failed check raises and the script exits non-zero:
       between the nominal count after the latest lock its carrier allows
       and the nominal count of the whole run (1 % either way), no stream
       span recovered by the host oracle; Msamples/s.
-Each main path, QPSK ((c), (d), (e), (f)) and OQPSK (the same with -oq), is
-driven with both kernels' launch counts and the counts of blocks replayed by
+  (h), (h-oq) turbo on a file: 120 s of signal (16-bit WAV, (d)'s piece
+      tiled: 27,648,000 samples, 3375 blocks) through `cli.main([... "-B",
+      "-q", "-T", "0", ...])` on the card (105 lanes x 32 blocks and a
+      15-block sequential tail) and beside it through `-B` alone: exit 0, the
+      mode's kernel launched at least kb_w + 2*kb times by the -T run, the
+      two .s files equal in length with mean |byte difference| < 2, the
+      symbol count within 1 % of nominal, mean |soft byte| in the mode's
+      band; and demod_array_turbo(..., strict=True) on the same samples:
+      converged in at most 4 passes, no fallback (so no flagged lane), its
+      symbols equal to demod_array's in count, locked_once and the sign of
+      every component;
+  (i), (i-oq) turbo on stdin: the same 120 s as raw 16-bit through a pipe
+      into `python -m meteor_demod_tpu_torch -T 32 --stdout -s 230400 --bps
+      16 -` (a subprocess): exit 0, output equal in length to (h)'s -B file
+      with mean |byte difference| < 2; and in-process a
+      StreamDemodulator(cfg, span_turbo=True, span_chunks=32) fed
+      8192-sample pieces: at least 5 spans (a span is 32 x 16 x 8192
+      samples, 18.2 s), soft-byte signs and locked_once equal to the
+      sequential stream's.
+Each main path, QPSK ((c), (d), (e), (f), (h), (i)) and OQPSK (the same with
+-oq), is driven with both kernels' launch counts and the counts of blocks replayed by
 the numpy oracle on the host set to 0 just before it and read just after:
 the path's own kernel must have launched, the other kernel not at all, and
 the replay counts must be 0, so that every block came from the card. (The
@@ -81,6 +104,8 @@ CHAIN = 16
 CLI_SECONDS = 30
 PIECE_S = 3          # the CLI fixture is a PIECE_S-second sim piece, tiled
 FLEET_CHAINS = 4     # (e): chains of CHAIN blocks through the fleet driver
+TURBO_SECONDS = 120  # (h), (i): the turbo recording, (d)'s piece tiled
+SPAN_LANES = 32      # (i): -T 32 on stdin
 # (g): the serving host's fleet. 6 s of signal, not the 10 s of a short pass:
 # synthesizing 254 passes on the host costs ~10 s per second of signal, three
 # times over, and is set-up, not serving.
@@ -179,6 +204,22 @@ def max_abs_diff(a: dict, b: dict) -> float:
                for k in a)
 
 
+def same_bitwise(what: str, kc, ko, pc, po) -> tuple[dict, dict, float]:
+    """Hold the kernel's outputs and carry (ko, kc) bitwise against the plain
+    version's (po, pc): the kernel's outputs and carry leaves as numpy, and
+    the largest difference (0.0 when this returns)."""
+    torch.cuda.synchronize()
+    a, b = outputs(ko), outputs(po)
+    ka, pa = leaves(kc), leaves(pc)
+    for k in a:
+        check(np.array_equal(a[k], b[k]), f"{what}: kernel {k} differs from "
+              f"plain, max {np.abs(a[k] - b[k]).max()}")
+    for k in ka:
+        check(np.array_equal(ka[k], pa[k]),
+              f"{what}: kernel carry {k} differs from plain")
+    return a, ka, max_abs_diff(a, b)
+
+
 def phase_b(cfg, dev, tag: str) -> dict:
     from meteor_demod_tpu_torch.demod import scalar
     from meteor_demod_tpu_torch.demod.state import batch_carry
@@ -198,17 +239,13 @@ def phase_b(cfg, dev, tag: str) -> dict:
         fts.append(Ft)
         slot_in = kc.slot.cpu().numpy()
         kc, ko = block_demod(cfg, kc, Ft)
+        plain = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)
+        plain[0].record()
         pc, po = block_demod_torch(cfg, pc, Ft)
-        torch.cuda.synchronize()
-        a, b = outputs(ko), outputs(po)
-        ka, pa = leaves(kc), leaves(pc)
-        for k in a:
-            check(np.array_equal(a[k], b[k]), f"({tag}) block {i}: kernel {k} "
-                  f"differs from plain, max {np.abs(a[k] - b[k]).max()}")
-        for k in ka:
-            check(np.array_equal(ka[k], pa[k]),
-                  f"({tag}) block {i}: kernel carry {k} differs from plain")
-        err = max(err, max_abs_diff(a, b))
+        plain[1].record()
+        a, ka, block_err = same_bitwise(f"({tag}) block {i}", kc, ko, pc, po)
+        err = max(err, block_err)
         nominal = L * cfg.symrate / FS
         check(int(a["valid"].sum()) > N_FLEET * 0.95 * nominal,
               f"({tag}) too few symbols")
@@ -222,6 +259,7 @@ def phase_b(cfg, dev, tag: str) -> dict:
             split = int(np.argmax(slot_in == 2))
         outs.append(a)
         if i == 0:
+            plain_ms = plain[0].elapsed_time(plain[1])
             # Fires of block 0, the block the times below are taken on: one
             # per QPSK symbol; two per OQPSK symbol plus the I half-fire of
             # a symbol split at the block's end (no pre-fire: block 0 is
@@ -251,15 +289,15 @@ def phase_b(cfg, dev, tag: str) -> dict:
                                            atol=1e-3)
                 oracle_err = max(oracle_err, float(np.max(np.abs(
                     a[ok][b][m].astype(np.float64) - syms[k]))))
-    # Times per block, from the same entry carry and FIR output.
+    # The kernel's times per block, from block 0's entry carry and FIR
+    # output: what the plain version's time above was taken on.
     c0 = batch_carry(cfg, N_FLEET, dev)
     c1 = batch_carry(cfg, 1, dev)
     ft1 = fts[0][:, :, :1].contiguous()
     t = dict(
         ms=cuda_ms(lambda: block_demod(cfg, c0, fts[0]), 20),
-        plain_ms=cuda_ms(lambda: block_demod_torch(cfg, c0, fts[0]), 1),
-        ms_b1=cuda_ms(lambda: block_demod(cfg, c1, ft1), 20),
-        plain_ms_b1=cuda_ms(lambda: block_demod_torch(cfg, c1, ft1), 1))
+        plain_ms=plain_ms,
+        ms_b1=cuda_ms(lambda: block_demod(cfg, c1, ft1), 20))
     # The least time the card could take for block 0 at B = 128: the bytes
     # the function must move (each fired tick's two floats, the four output
     # arrays and the carry in and out, once each) over the memory rate, or
@@ -275,10 +313,59 @@ def phase_b(cfg, dev, tag: str) -> dict:
         f"(max_abs_err {err}); oracle streams {streams}: decisions bitwise, "
         f"max |value diff| {oracle_err}; per block: kernel "
         f"{t['ms']:.3f} ms vs plain {t['plain_ms']:.1f} ms at B=128, kernel "
-        f"{t['ms_b1']:.3f} ms vs plain {t['plain_ms_b1']:.1f} ms at B=1; "
+        f"{t['ms_b1']:.3f} ms at B=1; "
         f"bound at B=128 {t['bound_ms'] * 1e3:.2f} us by {t['bound_by']} "
         f"({fires} fires, {n_bytes} bytes)")
     return dict(max_abs_err=err, **t)
+
+
+def phase_b_lanes(cfg, dev, tag: str) -> float:
+    """The kernel against its plain version at the other lane counts the main
+    paths launch it with: 1 (the CLI's -B, every sequential tail), SPAN_LANES
+    (the spans of (i)) and the -T 0 lane count of (h), which is no multiple
+    of 4 and so takes the 4-byte cp.async path with a ragged last warp. Per
+    count: block 0 through the kernel alone gives a mid-stream entry carry
+    (a filled FIR tail; for OQPSK, streams with a split symbol), block 1
+    through both, every output and carry leaf bitwise. Returns the largest
+    difference."""
+    from meteor_demod_tpu_torch import cli
+    from meteor_demod_tpu_torch.demod.state import batch_carry
+    from meteor_demod_tpu_torch.dsp.fir import (make_fir_banks,
+                                                polyphase_fir_block)
+    from meteor_demod_tpu_torch.kernels.block_demod import (block_demod,
+                                                            block_demod_torch)
+    L = cfg.block_len
+    counts = (1, SPAN_LANES, cli.turbo_lanes(TURBO_SECONDS * FS, L))
+    check(counts[2] % 4 != 0 and counts[2] < N_FLEET,
+          f"({tag}) -T 0 gives {counts[2]} lanes")
+    x = fleet_iq(cfg, N_FLEET, 2 * L, SEED + 2, dev)
+    banks = torch.as_tensor(make_fir_banks(cfg), device=dev)
+    err, notes = 0.0, []
+    for B in counts:
+        xb = x[:B].contiguous()
+        entry = batch_carry(cfg, B, dev)
+        Ft, tail = polyphase_fir_block(xb[:, :L], entry.fir_tail, banks)
+        entry, _ = block_demod(cfg, entry, Ft)
+        Ft, _ = polyphase_fir_block(xb[:, L:], tail, banks)
+        kc, ko = block_demod(cfg, entry, Ft)
+        t0 = time.perf_counter()
+        pc, po = block_demod_torch(cfg, entry, Ft)
+        a, _, block_err = same_bitwise(f"({tag}) B={B}", kc, ko, pc, po)
+        plain_s = time.perf_counter() - t0
+        err = max(err, block_err)
+        nominal = L * cfg.symrate / FS
+        check(int(a["valid"].sum()) > B * 0.95 * nominal,
+              f"({tag}) B={B}: too few symbols")
+        split = int((entry.slot == 2).sum()) if cfg.oqpsk else 0
+        check(not cfg.oqpsk or B == 1 or split > 0,
+              f"({tag}) B={B}: no stream entered with a split symbol")
+        notes.append(f"B={B} ({int(a['valid'].sum())} symbols"
+                     + (f", {split} pre-fires" if cfg.oqpsk else "")
+                     + f", plain {plain_s:.1f} s)")
+    say(f"({tag}) kernel == plain bitwise, outputs and carry, on a block "
+        f"entered mid-stream at the other lane counts of the main paths: "
+        f"{'; '.join(notes)} (max_abs_err {err})")
+    return err
 
 
 def phase_c(cfg, dev, card: str, tag: str) -> None:
@@ -313,19 +400,25 @@ def phase_c(cfg, dev, card: str, tag: str) -> None:
         f"{msps:.1f} Msamples/s on {card}")
 
 
+def tiled_signal(cfg, seconds: int) -> np.ndarray:
+    """`seconds` of simulated signal (300 Hz carrier, 20 dB): a PIECE_S-second
+    piece tiled. 3 s holds whole symbols, whole samples and 900 whole
+    carrier cycles, so the carrier and the symbol clock run on across the
+    joins (a pass is ~10 minutes; the smoke stays short)."""
+    from meteor_demod_tpu_torch.sim import synth_psk
+    x, _ = synth_psk(int(cfg.symrate) * PIECE_S, FS, symrate=cfg.symrate,
+                     oqpsk=cfg.oqpsk, carrier_hz=300.0, amplitude=6000.0,
+                     snr_db=20.0, seed=SEED)
+    return np.tile(x, seconds // PIECE_S)
+
+
 def phase_d(cfg, dev, card: str, tag: str) -> None:
     from meteor_demod_tpu_torch import cli
     from meteor_demod_tpu_torch.constants import RING_SYMBOLS
     from meteor_demod_tpu_torch.demod.pipeline import StreamDemodulator
-    from meteor_demod_tpu_torch.sim import synth_psk, write_wav
+    from meteor_demod_tpu_torch.sim import write_wav
     mode = MODES["oqpsk" if cfg.oqpsk else "qpsk"]
-    # A 3 s piece tiled to 60 s: 3 s holds whole symbols, whole samples and
-    # 900 whole carrier cycles, so the carrier and the symbol clock run on
-    # across the joins (a pass is ~10 minutes; 60 s keeps the smoke short).
-    x, _ = synth_psk(int(cfg.symrate) * PIECE_S, FS, symrate=cfg.symrate,
-                     oqpsk=cfg.oqpsk, carrier_hz=300.0, amplitude=6000.0,
-                     snr_db=20.0, seed=SEED)
-    x = np.tile(x, CLI_SECONDS // PIECE_S)
+    x = tiled_signal(cfg, CLI_SECONDS)
     with tempfile.TemporaryDirectory() as tmp:
         wav, out = os.path.join(tmp, "pass.wav"), os.path.join(tmp, "pass.s")
         write_wav(wav, x, FS, 16)
@@ -479,6 +572,167 @@ def phase_ef(cfg, dev, card: str, tag: str) -> None:
         f"uninterrupted run on {card}")
 
 
+# What (h) leaves for (i), per mode: the recording's files and (h)'s results.
+TURBO = {}
+
+
+def byte_diff(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.mean(np.abs(a.astype(np.int16) - b.astype(np.int16))))
+
+
+def same_decisions(got, ref, tag: str, view=lambda v: v) -> None:
+    check(len(got) == len(ref), f"({tag}) {len(got)} symbols, the sequential "
+          f"stream {len(ref)}")
+    check(np.array_equal(got["locked_once"], ref["locked_once"]),
+          f"({tag}) locked_once differs from the sequential stream's")
+    for k in ("re", "im"):
+        bad = np.nonzero(np.sign(view(got[k])) != np.sign(view(ref[k])))[0]
+        check(len(bad) == 0, f"({tag}) {len(bad)} signs of {k} differ from the "
+              f"sequential stream's, first at symbol {bad[:1]}")
+
+
+def phase_h(cfg, dev, card: str, tag: str) -> None:
+    """Turbo on a file: CLI -T 0 beside CLI -B, and demod_array_turbo beside
+    demod_array; see the module docstring."""
+    from meteor_demod_tpu_torch import cli
+    from meteor_demod_tpu_torch.demod.pipeline import demod_array
+    from meteor_demod_tpu_torch.demod.turbo import (default_warmup_blocks,
+                                                    demod_array_turbo)
+    from meteor_demod_tpu_torch.io.wav import decode_iq
+    from meteor_demod_tpu_torch.sim import encode_iq, write_wav
+    mode = MODES["oqpsk" if cfg.oqpsk else "qpsk"]
+    L = cfg.block_len
+    tmp = tempfile.TemporaryDirectory()
+    wav, raw = (os.path.join(tmp.name, n) for n in ("pass.wav", "pass.raw"))
+    x = tiled_signal(cfg, TURBO_SECONDS)
+    write_wav(wav, x, FS, 16)
+    payload = encode_iq(x, 16)
+    with open(raw, "wb") as f:
+        f.write(payload)
+    x = decode_iq(payload, 16)            # the samples both CLI runs decode
+    blocks = len(x) // L
+    lanes = cli.turbo_lanes(len(x), L)
+    kb = len(x) // (lanes * L)
+    kb_w = default_warmup_blocks(L, kb)
+    tail = blocks - lanes * kb
+    check((len(x), blocks, lanes, kb, tail) == (27648000, 3375, 105, 32, 15),
+          f"({tag}) geometry {(len(x), blocks, lanes, kb, tail)}")
+    os.environ.pop("METEOR_DEMOD_PLATFORM", None)        # the card
+    soft, secs = {}, {}
+    for name, extra in (("turbo", ["-T", "0"]), ("batch", [])):
+        out = os.path.join(tmp.name, name + ".s")
+        before = kernel(mode).launches
+        t0 = time.perf_counter()
+        rc = cli.main(["meteor_demod_tpu_torch", "-B", "-q", *mode["cli"],
+                       *extra, "-o", out, wav])
+        secs[name] = time.perf_counter() - t0
+        check(rc == 0, f"({tag}) CLI {' '.join(extra)} exit {rc}")
+        soft[name] = np.fromfile(out, dtype=np.int8)
+        if name == "turbo":
+            launched = kernel(mode).launches - before
+            check(kb_w + 2 * kb <= launched <= kb_w + 4 * kb + tail,
+                  f"({tag}) -T 0 launched the kernel {launched} times; "
+                  f"{kb_w} + 2..4 x {kb} + {tail} expected")
+    check(len(soft["turbo"]) == len(soft["batch"]), f"({tag}) -T 0 wrote "
+          f"{len(soft['turbo'])} bytes, -B {len(soft['batch'])}")
+    diff = byte_diff(soft["turbo"], soft["batch"])
+    check(diff < 2.0, f"({tag}) mean |byte difference| {diff} between -T 0 "
+          f"and -B")
+    n_sym = len(soft["turbo"]) // 2
+    nominal = int(cfg.symrate) * TURBO_SECONDS
+    check(abs(n_sym - nominal) <= 0.01 * nominal,
+          f"({tag}) {n_sym} symbols, expected {nominal} within 1 %")
+    mean_soft = float(np.mean(np.abs(soft["turbo"].astype(np.float32))))
+    lo, hi = mode["soft"]
+    check(lo <= mean_soft <= hi, f"({tag}) mean |soft byte| {mean_soft}")
+
+    t0 = time.perf_counter()
+    res = demod_array_turbo(cfg, x, chunks=lanes, strict=True)
+    t_turbo = time.perf_counter() - t0
+    check(res.converged and res.passes <= 4, f"({tag}) converged "
+          f"{res.converged} after {res.passes} passes, residual "
+          f"{res.max_residual}")
+    # A flagged lane redoes the recording sequentially and sets fell_back.
+    check(not res.fell_back and res.fallback_samples == 0,
+          f"({tag}) fell back over {res.fallback_samples} samples")
+    t0 = time.perf_counter()
+    seq = demod_array(cfg, x)
+    t_seq = time.perf_counter() - t0
+    same_decisions(res.symbols, seq, tag)
+    hist = np.bincount(res.gauges % 4, minlength=4).tolist()
+    TURBO[tag.replace("h", "i", 1)] = dict(tmp=tmp, raw=raw, seq=seq, x=x,
+                                           batch=soft["batch"])
+    say(f"({tag}) CLI -B -T 0 {' '.join(mode['cli'])} on {TURBO_SECONDS} s of "
+        f"16-bit 230.4 ksps {'OQPSK' if cfg.oqpsk else 'QPSK'}: {lanes} lanes "
+        f"x {kb} blocks (warm-up {kb_w}) + {tail}-block tail, {launched} "
+        f"kernel launches, exit 0, {n_sym} symbols (nominal {nominal}), mean "
+        f"|soft| {mean_soft:.1f}; .s equal in length to -B's, mean |byte "
+        f"difference| {diff:.3f}; wall {secs['turbo']:.2f} s against "
+        f"{secs['batch']:.2f} s for -B; demod_array_turbo strict: converged "
+        f"in {res.passes} passes, no fallback, 0 flagged lanes, gauges mod 4 "
+        f"{hist}, decisions == demod_array's on all {len(seq)} symbols, "
+        f"{t_turbo:.2f} s against {t_seq:.2f} s on {card}")
+
+
+def phase_i(cfg, dev, card: str, tag: str) -> None:
+    """Turbo on stdin: the CLI's -T 32 as a subprocess fed through a pipe,
+    and the span-mode stream in-process; see the module docstring."""
+    from meteor_demod_tpu_torch.demod.pipeline import (StreamDemodulator,
+                                                       quantize)
+    mode = MODES["oqpsk" if cfg.oqpsk else "qpsk"]
+    fix = TURBO.pop(tag)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("METEOR_DEMOD_PLATFORM", None)                   # the card
+    with open(fix["raw"], "rb") as f:
+        payload = f.read()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "meteor_demod_tpu_torch", "-T",
+         str(SPAN_LANES), "--stdout", "-s", str(FS), "--bps", "16",
+         *mode["cli"], "-"], input=payload, env=env, cwd=root,
+        capture_output=True, timeout=600)
+    secs = time.perf_counter() - t0
+    fix["tmp"].cleanup()
+    check(proc.returncode == 0, f"({tag}) CLI -T {SPAN_LANES} on stdin exit "
+          f"{proc.returncode}:\n{proc.stderr.decode()[-3000:]}")
+    soft = np.frombuffer(proc.stdout, dtype=np.int8)
+    check(len(soft) == len(fix["batch"]), f"({tag}) stdin -T wrote "
+          f"{len(soft)} bytes, -B on the file {len(fix['batch'])}")
+    diff = byte_diff(soft, fix["batch"])
+    check(diff < 2.0, f"({tag}) mean |byte difference| {diff} between stdin "
+          f"-T {SPAN_LANES} and -B")
+
+    x = fix["x"]
+    d = StreamDemodulator(cfg, span_turbo=True, span_chunks=SPAN_LANES)
+    check(d.device.type == "cuda", f"({tag}) the stream is on {d.device}")
+    verified, submit = [], d._submit_span
+
+    def counting(span):
+        pend = submit(span)
+        verified.append(0 if pend is None else pend.P)
+        return pend
+
+    d._submit_span = counting
+    before = kernel(mode).launches
+    t0 = time.perf_counter()
+    out = [d.process(x[at:at + 8192]) for at in range(0, len(x), 8192)]
+    out.append(d.finish())
+    t_span = time.perf_counter() - t0
+    launched = kernel(mode).launches - before
+    check(d.spans_run >= 5, f"({tag}) {d.spans_run} spans ran")
+    same_decisions(np.concatenate(out), fix["seq"], tag, view=quantize)
+    say(f"({tag}) CLI -T {SPAN_LANES} --stdout {' '.join(mode['cli'])} on "
+        f"{TURBO_SECONDS} s of raw 16-bit through a pipe: exit 0, .s equal "
+        f"in length to -B's, mean |byte difference| {diff:.3f}, {secs:.2f} s "
+        f"wall (start-up included); StreamDemodulator span mode fed "
+        f"8192-sample pieces: {d.spans_run} spans of {SPAN_LANES} lanes x 16 "
+        f"blocks, verified lanes {verified}, {d.span_fallbacks} fallbacks, "
+        f"{launched} kernel launches, soft-byte signs and locked_once == "
+        f"the sequential stream's on all {len(fix['seq'])} symbols, "
+        f"{t_span:.2f} s on {card}")
+
+
 def phase_g(card: str) -> None:
     """The serving host as a subprocess on the card: straight through, and
     stopped and resumed; see the module docstring."""
@@ -567,12 +821,13 @@ def kernel(mode: dict):
 
 def main_path(cfg, dev, smi: str, mode: dict, other: dict) -> int:
     """Drive one mode's main paths (fleet loop, CLI, fleet driver and its
-    checkpoint), each with the launch and replay counts set to 0 just before
+    checkpoint, turbo on a file, turbo on stdin), each with the launch and replay counts set to 0 just before
     it and read just after; return the sum of its kernel's launches."""
     from meteor_demod_tpu_torch.demod.pipeline import StreamDemodulator
     suffix = "-oq" if cfg.oqpsk else ""
     total = 0
-    for phase, tag in ((phase_c, "c"), (phase_d, "d"), (phase_ef, "e")):
+    for phase, tag in ((phase_c, "c"), (phase_d, "d"), (phase_ef, "e"),
+                       (phase_h, "h"), (phase_i, "i")):
         kernel(mode).launches = kernel(other).launches = 0
         StreamDemodulator.replayed_blocks = 0
         phase(cfg, dev, smi, tag + suffix)
@@ -613,6 +868,9 @@ def main() -> int:
                 oqpsk=DemodConfig(samplerate=FS, symrate=80000.0, oqpsk=True))
     rec = dict(qpsk=phase_b(cfgs["qpsk"], dev, "b"),
                oqpsk=phase_b(cfgs["oqpsk"], dev, "b-oq"))
+    for m, tag in (("qpsk", "b-lanes"), ("oqpsk", "b-lanes-oq")):
+        rec[m]["max_abs_err"] = max(rec[m]["max_abs_err"],
+                                    phase_b_lanes(cfgs[m], dev, tag))
     for m, other in (("qpsk", "oqpsk"), ("oqpsk", "qpsk")):
         rec[m]["launches"] = main_path(cfgs[m], dev, smi, MODES[m],
                                        MODES[other])

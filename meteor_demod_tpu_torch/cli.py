@@ -16,8 +16,11 @@ without that setting the CLI raises: it never falls back to the CPU.
 --checkpoint <file> resumes from <file> when it exists and saves the state
 there at the end, so split captures demodulate as one continuous stream.
 
-Not ported yet (each exits 1 with one line on stderr): -T/--turbo and the
-TUI (non-batch mode).
+-T/--turbo <chunks> demodulates one recording across the block demodulator's
+lanes (demod/turbo.py): a file whole (0 picks the lane count), stdin span by
+span. Without -B the curses TUI (ui/tui.py) draws the run.
+METEOR_DEMOD_PROFILE=<dir> writes a torch.profiler trace of the run there
+(profiling.py).
 """
 
 from __future__ import annotations
@@ -33,9 +36,16 @@ from . import __version__
 from .config import DemodConfig
 from .demod.pipeline import StreamDemodulator, quantize_symbols
 from .io.checkpoint import load_checkpoint, save_checkpoint
-from .io.wav import open_input, read_sample_blocks
+from .io.wav import FILE_BUFFER_SIZE, decode_iq, open_input, read_sample_blocks
 from .io.writer import SymbolWriter
+from .profiling import maybe_trace
 from .utils import gen_fname, human_to_float, select_device
+
+# -T 0 fills at most this many lanes of a launch, each lane with at least
+# TURBO_MIN_BLOCKS blocks so that the gauge warmup can mature
+# (turbo.default_warmup_blocks targets 65536 samples).
+TURBO_MAX_LANES = 128
+TURBO_MIN_BLOCKS = 32
 
 SHORTOPTS = "Bb:d:f:hm:o:O:qR:r:s:S:T:v"
 LONGOPTS = [
@@ -66,6 +76,11 @@ Advanced options:
    -O, --oversamp <mult>   Set the interpolation factor to <mult> (default: 5)
 
 Extensions (not in the reference):
+   -T, --turbo <chunks>    Demodulate one recording chunk-parallel across
+                           <chunks> lanes of the card (0 = pick the count
+                           from the file's length); on stdin, span by span
+                           (nothing is written until a span of
+                           <chunks> x 16 x 8192 samples has buffered)
        --checkpoint <file> Resume from <file> if it exists and save the
                            demodulator state there at the end: captures
                            split over several runs demodulate as one
@@ -79,9 +94,6 @@ Extensions (not in the reference):
                            locks — pll.c:109-130). 0 (default) disables
                            the kick for exact reference acquisition
                            behavior
-
-Not ported yet (exit 1): -T/--turbo and the TUI (run with -B, --stdout or
-stdin input).
 
 Device: the CUDA card; METEOR_DEMOD_PLATFORM=cpu runs on the CPU.
 """
@@ -261,29 +273,11 @@ class DemodRunner:
                 d.pll_locked)
 
 
-def _not_ported(opts: Options) -> str | None:
-    """The one-line refusal for an option this port does not run yet."""
-    if opts.turbo_chunks is not None:
-        return "-T/--turbo is not ported to meteor_demod_tpu_torch yet"
-    if not opts.batch and opts.input_path != "-":
-        return ("the TUI is not ported to meteor_demod_tpu_torch yet; "
-                "run with -B")
-    return None
-
-
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv) if argv is None else argv
     opts = parse_args(argv)
     if isinstance(opts, int):
         return opts
-    if opts.checkpoint_path is not None and opts.turbo_chunks is not None:
-        sys.stderr.write("--checkpoint cannot be combined with -T/--turbo "
-                         "(the turbo path is whole-file)\n")
-        return 1
-    refusal = _not_ported(opts)
-    if refusal:
-        sys.stderr.write(refusal + "\n")
-        return 1
     device = select_device()
 
     try:
@@ -326,8 +320,28 @@ def main(argv: list[str] | None = None) -> int:
         sys.stderr.write(f"Invalid configuration: {e}\n")
         return 1
 
-    demod = StreamDemodulator(cfg, device,
-                              sweep_rescue_s=opts.sweep_rescue_s)
+    if opts.sweep_rescue_s > 0 and opts.turbo_chunks is not None:
+        sys.stderr.write("--sweep-rescue is ignored with -T/--turbo (the "
+                         "turbo paths run whole spans; acquisition kicks "
+                         "apply to the sequential/live path only)\n")
+    if opts.checkpoint_path is not None and opts.turbo_chunks is not None:
+        sys.stderr.write("--checkpoint cannot be combined with -T/--turbo "
+                         "(the turbo path is whole-file)\n")
+        return 1
+
+    if opts.turbo_chunks is not None and not is_stdin:
+        with maybe_trace():
+            return _run_turbo(opts, cfg, device, samples_file, soft_file, bps)
+
+    # stdin + -T: the whole file is never in hand, so apply the turbo
+    # machinery to buffered SPANS instead (turbo.span_submit): live/piped
+    # inputs that burst ahead of real time are demodulated chunk-parallel,
+    # with the sequential path as the verified-prefix fallback.
+    span_turbo = opts.turbo_chunks is not None
+    demod = StreamDemodulator(
+        cfg, device, sweep_rescue_s=opts.sweep_rescue_s,
+        span_turbo=span_turbo,
+        span_chunks=max(2, opts.turbo_chunks or 32) if span_turbo else 32)
     if opts.checkpoint_path is not None and os.path.exists(
             opts.checkpoint_path):
         resumed = load_checkpoint(opts.checkpoint_path, device)
@@ -363,10 +377,19 @@ def main(argv: list[str] | None = None) -> int:
               f"{'stdout' if opts.stdout_mode else opts.output_fname}",
               file=sys.stderr if opts.stdout_mode else sys.stdout)
 
-    worker = threading.Thread(target=runner.run, daemon=True)
+    def traced_run():
+        # On the worker's own thread: torch.profiler records the CPU side
+        # of the thread it was started on only (the card's side whole).
+        with maybe_trace():
+            runner.run()
+
+    worker = threading.Thread(target=traced_run, daemon=True)
     worker.start()
     try:
-        if not opts.quiet:
+        if not opts.batch:
+            from .ui.tui import run_tui
+            run_tui(runner, opts.update_interval)
+        elif not opts.quiet:
             _batch_status_loop(runner, opts)
         else:
             runner.done.wait()
@@ -389,6 +412,47 @@ def main(argv: list[str] | None = None) -> int:
         if not opts.quiet:
             print(f"Checkpoint saved to {opts.checkpoint_path}",
                   file=sys.stderr if opts.stdout_mode else sys.stdout)
+    return 0
+
+
+def turbo_lanes(n_samples: int, block_len: int) -> int:
+    """-T 0: fill the lanes of a launch, but keep each lane's chunk at
+    TURBO_MIN_BLOCKS blocks or more; short recordings get fewer, longer
+    chunks."""
+    return int(np.clip(n_samples // (TURBO_MIN_BLOCKS * block_len),
+                       1, TURBO_MAX_LANES))
+
+
+def _run_turbo(opts: Options, cfg: DemodConfig, device, samples_file,
+               soft_file, bps: int) -> int:
+    """Offline chunk-parallel demodulation of the whole file (-T <chunks>).
+
+    Reads all samples, runs demod_array_turbo across the batch lanes of the
+    card, and writes the usual lock-gated int8 soft-symbol stream."""
+    from .demod.turbo import demod_array_turbo
+
+    raw = samples_file.read()
+    # Reference ingest parity (wav_read reads full 32 KiB buffers and
+    # discards a short trailing read, wavfile.c:50-80): -T must demodulate
+    # exactly the bytes the batch path consumes, or the two modes emit
+    # different symbol streams for the same file.
+    raw = raw[:len(raw) - len(raw) % FILE_BUFFER_SIZE]
+    x = decode_iq(raw, bps)
+    chunks = opts.turbo_chunks or turbo_lanes(len(x), cfg.block_len)
+    info = sys.stderr if opts.stdout_mode else sys.stdout
+    if not opts.quiet:
+        print(f"Turbo: {len(x)} samples across {chunks} lanes", file=info)
+    res = demod_array_turbo(cfg, x, chunks=chunks, device=device,
+                            strict=True)
+    w = SymbolWriter(soft_file)
+    w.feed(quantize_symbols(res.symbols), res.symbols["locked_once"])
+    w.flush_partial()
+    if not opts.stdout_mode:
+        soft_file.close()
+    samples_file.close()
+    if not opts.quiet:
+        print(f"Turbo: {len(res.symbols)} symbols, passes={res.passes}, "
+              f"converged={res.converged}", file=info)
     return 0
 
 

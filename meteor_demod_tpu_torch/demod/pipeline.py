@@ -9,6 +9,9 @@ or how the input was chunked.
 On a CUDA device the calls are asynchronous: up to `lookahead` single
 blocks are in flight before their results are fetched, and `chain_blocks`
 buffered blocks are dispatched back to back with one fetch at the end.
+
+Span mode (span_turbo=True, the CLI's -T on stdin) buffers whole spans and
+demodulates each across the block demodulator's lanes (demod/turbo.py).
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ from ..constants import SWEEP_STEP
 from ..dsp.fir import f32_to_iq, iq_to_f32
 from ..utils import select_device
 from .backend import make_batch_demod
-from .state import BlockOutput, DemodCarry, batch_carry, carry_to_numpy
+from .state import (CARRY_FIELDS, BlockOutput, DemodCarry, batch_carry,
+                    carry_from_numpy, carry_to_numpy)
 from . import scalar
 
 _SYM_DTYPE = [("re", np.float32), ("im", np.float32), ("locked_once", np.int32)]
@@ -132,11 +136,31 @@ class StreamDemodulator:
     replayed_blocks = 0
 
     def __init__(self, cfg: DemodConfig, device=None,
-                 sweep_rescue_s: float = 0.0):
+                 sweep_rescue_s: float = 0.0, span_turbo: bool = False,
+                 span_chunks: int = 32, span_blocks: int = 16):
         cfg.validate()
         self.cfg = cfg
         # None: the CUDA card, or the CPU under METEOR_DEMOD_PLATFORM=cpu.
         self.device = select_device(device)
+        # Speculative span mode: when a full span of input is buffered
+        # (file-backed or bursty streams), demodulate it chunk-parallel
+        # across span_chunks batch lanes with the gauge fixpoint
+        # (demod/turbo.py span_submit) instead of the sequential block
+        # chain, under the strict-turbo acceptance contract (verified lane
+        # prefix, decision-final by induction; OQPSK additionally shrunk to
+        # an even-gauge boundary; anything unverified stays buffered or
+        # falls to the sequential path). Opt-in: the CLI's -T enables it
+        # for stdin/live inputs.
+        self.span_turbo = bool(span_turbo)
+        self.span_chunks = span_chunks
+        self.span_blocks = span_blocks
+        self.spans_run = 0
+        self.span_fallbacks = 0
+        # Span mode's small feeds wait here and join _pending only when a
+        # span is due (or at sync()), so that buffering a span of 8192-sample
+        # reads does not copy the buffer once per read.
+        self._feeds = []
+        self._feeds_len = 0
         self._fn = make_batch_demod(cfg, 1, self.device)
         self._carry = batch_carry(cfg, 1, self.device)
         self._pending = np.zeros(0, dtype=np.complex64)
@@ -218,12 +242,40 @@ class StreamDemodulator:
                 / (2 * np.pi))
 
     # -- processing ----------------------------------------------------------
+    def set_carry(self, leaves: dict) -> None:
+        """Install a carry given as numpy leaves of ONE stream (0-d, or with
+        a leading axis of 1; carry_to_numpy's keys) on this demodulator's
+        device, and refresh the telemetry from it: how turbo continues a
+        stream from a chunk's exit carry."""
+        self._carry = carry_from_numpy(
+            {k: np.asarray(leaves[k]).reshape(
+                (1, self.cfg.taps - 1, 2) if k == "fir_tail" else (1,))
+             for k in CARRY_FIELDS}, self.device)
+        self._publish_telemetry()
+
     def process(self, samples: np.ndarray) -> np.ndarray:
-        """Feed samples (any length, complex64); returns produced symbols."""
-        self._pending = np.concatenate(
-            [self._pending, np.asarray(samples, dtype=np.complex64)])
+        """Feed samples (any length, complex64); returns produced symbols.
+
+        Span mode BUFFERS sub-span input instead of draining it through the
+        sequential paths: per-chunk feeding (the CLI's stdin loop delivers
+        ~8k-sample pieces) must still accumulate the
+        span_chunks*span_blocks*block_len samples a span needs, so the drain
+        loops only run in non-span mode (and in finish()). The cost is
+        latency: span mode emits nothing until a full span has buffered
+        (~18 s of live 230 ksps input at the CLI defaults), the documented
+        -T trade (cli.py)."""
+        samples = np.asarray(samples, dtype=np.complex64)
         chunks, self._backlog = self._backlog, []
-        self._drain_blocks(chunks)
+        if self.span_turbo:
+            self._feeds.append(samples)
+            self._feeds_len += len(samples)
+            span_n = self.span_chunks * self.span_blocks * self.cfg.block_len
+            if len(self._pending) + self._feeds_len >= span_n:
+                self._join_feeds()
+                self._drain_spans(chunks)
+        else:
+            self._pending = np.concatenate([self._pending, samples])
+            self._drain_blocks(chunks)
         if self.sweep_rescue_s > 0:
             self._maybe_sweep_kick(len(samples))
         if chunks:
@@ -235,6 +287,11 @@ class StreamDemodulator:
     def _maybe_sweep_kick(self, n_samples: int) -> None:
         """Count unlocked signal; kick the carry onto the downward escape
         sweep when the budget is exceeded (see __init__)."""
+        if self.span_turbo:
+            # Span mode buffers a whole span before any device work: the
+            # budget would count buffered (undemodulated) samples and kick
+            # a carry that has seen no signal.
+            return
         if self._telemetry["locked"]:
             self._rescue_pending_samples = 0
             return
@@ -252,6 +309,71 @@ class StreamDemodulator:
             updown=torch.full_like(self._carry.updown, -1.0))
         self._publish_telemetry()
         self._rescue_pending_samples = -self._rescue_transit_samples
+
+    def _join_feeds(self) -> None:
+        if self._feeds:
+            self._pending = np.concatenate([self._pending, *self._feeds])
+            self._feeds, self._feeds_len = [], 0
+
+    def _drain_spans(self, chunks: list) -> None:
+        """Drain _pending span by span, appending symbol arrays to `chunks`.
+
+        Pipelined: span k+1 is SUBMITTED from span k's exit carry (final at
+        submit time, turbo.SpanPending) before span k's bulk symbol payload
+        is fetched and assembled."""
+        L = self.cfg.block_len
+        span_n = self.span_chunks * self.span_blocks * L
+        span_pend = None
+        while len(self._pending) >= span_n:
+            self.sync()
+            chunks.extend(self._backlog)
+            self._backlog = []
+            pend = self._submit_span(self._pending[:span_n])
+            if pend is None:
+                # Unverified span: bounded sequential progress (one chained
+                # dispatch) so the buffer cannot grow without bound, then
+                # retry the span path on the shifted buffer. Never wrong
+                # output, worst case one redundant pass over the consumed
+                # prefix. The earlier span's symbols go out first.
+                if span_pend is not None:
+                    chunks.append(self._finish_span(span_pend))
+                    span_pend = None
+                take = min(self.chain_blocks * L, span_n)
+                seq, self._pending = (self._pending[:take],
+                                      self._pending[take:])
+                chunks.append(self._run_chained(seq))
+                continue
+            if span_pend is not None:
+                chunks.append(self._finish_span(span_pend))
+            span_pend = pend
+        if span_pend is not None:
+            chunks.append(self._finish_span(span_pend))
+
+    def _submit_span(self, span: np.ndarray):
+        """Run a buffered span chunk-parallel (turbo.span_submit).
+
+        Consumes the verified prefix from _pending and installs its exit
+        carry immediately (acceptance is decided by the small fetch alone);
+        returns the SpanPending whose symbols _finish_span retrieves, or
+        None when nothing verified (the caller falls through to the
+        sequential chained path)."""
+        from .turbo import span_submit
+        carry0 = {k: v[0] for k, v in carry_to_numpy(self._carry).items()}
+        pend = span_submit(self.cfg, carry0, iq_to_f32(span),
+                           chunks=self.span_chunks, device=self.device)
+        self.spans_run += 1
+        if pend.consumed == 0:
+            self.span_fallbacks += 1
+            return None
+        self._pending = self._pending[pend.consumed:]
+        self.set_carry(pend.exit_carry)
+        return pend
+
+    def _finish_span(self, pend) -> np.ndarray:
+        """Fetch and assemble a submitted span's symbols
+        (turbo.span_finish)."""
+        from .turbo import span_finish
+        return span_finish(self.cfg, pend).symbols
 
     def _drain_blocks(self, chunks: list) -> None:
         """Drain _pending through the chained / single-block device paths
@@ -271,6 +393,10 @@ class StreamDemodulator:
             chunks.append(self._run_block(block))
 
     def _upload(self, x: np.ndarray) -> torch.Tensor:
+        # At most chain_blocks blocks (512 KiB): a plain copy. Through
+        # utils.to_device's pinned staging the stream read 1.32 against 1.19
+        # ms a QPSK block on an H100 (chip_measure.py --sections stream,
+        # trees in turns, PERF.md section 6); that pays from megabytes up.
         return torch.as_tensor(iq_to_f32(x), device=self.device)
 
     def _oracle(self, x: np.ndarray, prev_carry: DemodCarry) -> np.ndarray:
@@ -287,10 +413,10 @@ class StreamDemodulator:
         StreamDemodulator.replayed_blocks += n_blocks
 
     def _run_chained(self, span: np.ndarray) -> np.ndarray:
-        """Demodulate chain_blocks consecutive blocks with one upload and
-        one fetch."""
-        k = self.chain_blocks
+        """Demodulate a whole number of consecutive blocks (chain_blocks of
+        them, or a short span's all) with one upload and one fetch."""
         L = self.cfg.block_len
+        k = len(span) // L
         prev_carry = self._carry
         blocks = self._upload(span).view(k, 1, L, 2)
         carry, outs = prev_carry, []
@@ -338,12 +464,14 @@ class StreamDemodulator:
     def sync(self) -> None:
         """Drain the dispatch pipeline, buffering its symbols for the next
         process()/finish() return. Leaves _carry/_pending authoritative."""
+        self._join_feeds()
         while self._inflight:
             self._backlog.append(self._drain_one())
 
     def finish(self) -> np.ndarray:
-        """Drain the dispatch pipeline and any buffered full blocks, then
-        process the remaining sub-block tail with the exact oracle."""
+        """Drain the dispatch pipeline and any buffered full blocks (span
+        mode can hold up to a whole span), then process the remaining
+        sub-block tail with the exact oracle."""
         self.sync()
         chunks, self._backlog = self._backlog, []
         self._drain_blocks(chunks)

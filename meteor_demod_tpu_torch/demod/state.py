@@ -110,6 +110,13 @@ def init_carry(cfg, device=None) -> DemodCarry:
     return DemodCarry(**{k: getattr(c, k)[0] for k in CARRY_FIELDS})
 
 
+def batch_carry_np(cfg, batch: int) -> dict:
+    """batch_carry as a dict of host numpy leaves (carry_to_numpy's layout),
+    for bookkeeping that stays on the host."""
+    return {k: np.array(v) for k, v in
+            carry_to_numpy(batch_carry(cfg, batch, "cpu")).items()}
+
+
 def carry_to_numpy(carry: DemodCarry) -> dict:
     """Carry -> dict of numpy leaves, in the JAX package's carry_to_numpy
     layout (same keys, shapes and dtypes)."""

@@ -66,9 +66,9 @@ def decode_iq(raw: bytes, bps: int) -> np.ndarray:
         a = np.frombuffer(raw, dtype="<f4").astype(np.float32)
     else:
         raise ValueError(f"unsupported bits per sample: {bps}")
-    n = (len(a) // 2) * 2
-    a = a[:n]
-    return (a[0::2] + 1j * a[1::2]).astype(np.complex64)
+    # The interleaved float32 pairs ARE the complex64 samples: a view, where
+    # building them by arithmetic costs ~1 s on a two-minute recording.
+    return a[:(len(a) // 2) * 2].view(np.complex64)
 
 
 def read_sample_blocks(f: BinaryIO, bps: int,

@@ -42,7 +42,7 @@ from ..demod.state import (CARRY_FIELDS, BlockOutput, DemodCarry,
                            PackedOutput, batch_carry, carry_from_numpy,
                            carry_to_numpy)
 from ..dsp.fir import f32_to_iq, iq_to_f32
-from ..utils import select_device
+from ..utils import select_device, to_device, to_host
 
 INGESTS = {"f32": np.float32, "i16": np.int16, "u8": np.uint8}
 
@@ -167,7 +167,6 @@ class FleetDemodulator:
         self.telemetry_every = telemetry_every
         self._block_idx = 0
         self._fns = {}
-        self._stage_in = self._stage_out = None    # pinned, made on first use
         self._get_fn(telemetry=True)         # checks backend and device now
         self.carry = batch_carry(cfg, n_streams, self.device)
         self.telemetry = None
@@ -226,11 +225,11 @@ class FleetDemodulator:
         # The pre-dispatch carry stays on the device (the step returns new
         # tensors); it is fetched only if a stream flags.
         prev_carry = self.carry
-        x = self._upload(blocks)
+        x = to_device(blocks, self.device)
         tel_tick = (self._block_idx % self.telemetry_every) == 0
         self._block_idx += 1
         self.carry, outs, tel = self._get_fn(tel_tick)(self.carry, x)
-        outs = type(outs)(*self._download(dataclasses.astuple(outs)))
+        outs = type(outs)(*to_host(dataclasses.astuple(outs)))
         self.stream_flags = np.array(self.carry.flags.cpu().numpy())
         locked_vec = None
         if tel_tick:
@@ -246,34 +245,6 @@ class FleetDemodulator:
             self._rescue_streak[locked_vec != 0] = 0
             self._maybe_rescue()
         return outs
-
-    # Host <-> card copies go through pinned staging buffers, kept from
-    # dispatch to dispatch: a copy from or to pageable memory ran at under
-    # 1 GB/s on an H100's host and was a quarter of a chain's wall time
-    # (PERF.md section 6). On the CPU the arrays are used where they lie.
-
-    def _upload(self, blocks: np.ndarray) -> torch.Tensor:
-        src = torch.from_numpy(blocks)
-        if self.device.type != "cuda":
-            return src
-        if self._stage_in is None:
-            self._stage_in = torch.empty(src.shape, dtype=src.dtype,
-                                         pin_memory=True)
-        self._stage_in.copy_(src)
-        # The dispatch ends in a synchronous readback, so the buffer is
-        # free again before the next dispatch writes it.
-        return self._stage_in.to(self.device, non_blocking=True)
-
-    def _download(self, tensors) -> list[np.ndarray]:
-        if self.device.type != "cuda":
-            return [t.numpy() for t in tensors]
-        if self._stage_out is None:
-            self._stage_out = [torch.empty(t.shape, dtype=t.dtype,
-                                           pin_memory=True) for t in tensors]
-        for dst, t in zip(self._stage_out, tensors):
-            dst.copy_(t, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
-        return [dst.numpy().copy() for dst in self._stage_out]
 
     def _maybe_rescue(self) -> None:
         """Kick long-unlocked streams onto the downward escape sweep (see
@@ -424,7 +395,6 @@ class FleetDemodulator:
             self.ingest = new_ingest
             self.packed_output = new_packed
             self._fns = {}
-            self._stage_in = self._stage_out = None
         self.set_sweep_rescue(float(meta.get("sweep_rescue_s", 0.0)))
         self.carry = carry_from_numpy(
             {k: z[f"{p}carry_{k}"] for k in CARRY_FIELDS}, self.device)

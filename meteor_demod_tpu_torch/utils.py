@@ -1,11 +1,12 @@
-"""Formatting and CLI helper utilities (reference: utils.c), and the
-device every entry point defaults to."""
+"""Formatting and CLI helper utilities (reference: utils.c), the device
+every entry point defaults to, and the host <-> card copies."""
 
 from __future__ import annotations
 
 import os
 import time
 
+import numpy as np
 import torch
 
 PLATFORM_ENV = "METEOR_DEMOD_PLATFORM"
@@ -27,6 +28,64 @@ def select_device(device=None) -> torch.device:
         raise RuntimeError(f"CUDA is not available; set {PLATFORM_ENV}=cpu "
                            f"to demodulate on the CPU")
     return torch.device("cuda")
+
+
+# Host <-> card copies go through pinned staging memory: a copy from or to
+# pageable memory ran at under 1 GB/s on an H100's host (PERF.md section 6).
+# torch's pinned allocator caches its blocks and holds one back while a
+# non-blocking copy still reads it, so the buffers are made where they are
+# used and cost an allocation only the first time.
+STAGE_BYTES = 32 << 20
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A numpy array -> a tensor on `device`. On the CPU the array is used
+    where it lies; to a card it goes in pieces of whole rows (of its first
+    axis), about STAGE_BYTES each, through two pinned buffers in turn, and
+    the copies are only queued: work on the device's current stream sees
+    them done."""
+    src = torch.from_numpy(a)
+    if device.type != "cuda":
+        return src
+    out = torch.empty(src.shape, dtype=src.dtype, device=device)
+    if src.numel() == 0:
+        return out
+    rows = src.reshape(1) if src.dim() == 0 else src
+    dst = out.view(rows.shape)
+    n_rows = rows.shape[0]
+    piece = max(1, STAGE_BYTES // (rows[0].numel() * rows.element_size()))
+    stages = [torch.empty((min(piece, n_rows),) + rows.shape[1:],
+                          dtype=rows.dtype, pin_memory=True)
+              for _ in range(min(2, -(-n_rows // piece)))]
+    done = [torch.cuda.Event() for _ in stages]
+    for i, at in enumerate(range(0, n_rows, piece)):
+        n = min(piece, n_rows - at)
+        if i >= 2:
+            done[i % 2].synchronize()
+        stages[i % 2][:n].copy_(rows[at:at + n])
+        dst[at:at + n].copy_(stages[i % 2][:n], non_blocking=True)
+        done[i % 2].record()
+    return out
+
+
+def to_host(tensors, copy: bool = True) -> list[np.ndarray]:
+    """Tensors -> numpy arrays, each from its own device; from a card, all
+    queued into pinned memory and waited for once. The arrays are copies in
+    ordinary memory; with copy=False they are the pinned buffers themselves,
+    for a caller that consumes them at once (a kept one holds its buffer
+    back from the allocator's cache, and the next call pays for a new one)."""
+    out = []
+    for t in tensors:
+        if t.device.type != "cuda":
+            out.append(t.numpy())
+            continue
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        out.append(host)
+    if any(isinstance(h, torch.Tensor) for h in out):
+        torch.cuda.synchronize()
+    return [(h.numpy().copy() if copy else h.numpy())
+            if isinstance(h, torch.Tensor) else h for h in out]
 
 
 def gen_fname(t: float | None = None) -> str:

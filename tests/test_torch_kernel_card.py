@@ -87,8 +87,9 @@ def _host(carry, out) -> tuple[dict, dict]:
 
 # Stream counts that take every path of the kernels' tick staging: one stream
 # (31 lanes only copy), 4-byte pieces (3, 33, 130), 16-byte pieces (4, 256),
-# a ragged last warp (3, 4, 33, 130) and whole warps (256).
-BATCHES = [1, 3, 4, 33, 130, 256]
+# a ragged last warp (3, 4, 33, 130) and whole warps (256); 105 is the lane
+# count turbo's -T 0 gives a 120 s recording (4-byte pieces, ragged warp).
+BATCHES = [1, 3, 4, 33, 105, 130, 256]
 
 
 @pytest.mark.gpu
@@ -452,3 +453,54 @@ def test_packed_output_on_card_matches_host_quantizer(cuda_device):
         np.testing.assert_array_equal(
             got.to(torch.int8).cpu().numpy()[:-1],
             quantize(edge).astype(np.int8)[:-1])
+
+
+# -------------------------------------------------------------------- turbo
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [CFG, OQ_CFG], ids=["qpsk", "oqpsk"])
+def test_turbo_on_card_equals_sequential_decisions(cuda_device, cfg):
+    """demod_array_turbo on the card (7 lanes x 24 blocks and a tail, its
+    passes launching the mode's kernel with B = 7) against demod_array on the
+    card: converged with no fallback, the same symbol count, locked_once and
+    the sign of every component. Then a span from the stream's carry
+    mid-way: all lanes verified for QPSK, and the soft bytes' signs those of
+    the sequential symbols."""
+    from meteor_demod_tpu_torch.demod.pipeline import demod_array, quantize
+    from meteor_demod_tpu_torch.demod.turbo import (demod_array_turbo,
+                                                    demod_span_turbo)
+    kernel = block_demod_oqpsk if cfg.oqpsk else block_demod
+    lanes, kb = 7, 24
+    n = lanes * kb * L + 3000
+    x = synth_psk(int(n * cfg.symrate / 230400) + 64, 230400,
+                  symrate=cfg.symrate, oqpsk=cfg.oqpsk, carrier_hz=150.0,
+                  amplitude=6000.0, snr_db=18.0, seed=31)[0][:n]
+    seq = demod_array(cfg, x, cuda_device)
+    before = kernel.launches
+    res = demod_array_turbo(cfg, x, chunks=lanes, device=cuda_device,
+                            strict=True)
+    assert kernel.launches - before >= 12 + 2 * kb
+    assert res.converged and res.passes <= 4 and not res.fell_back
+    assert len(res.symbols) == len(seq)
+    np.testing.assert_array_equal(res.symbols["locked_once"],
+                                  seq["locked_once"])
+    for k in ("re", "im"):
+        np.testing.assert_array_equal(np.sign(res.symbols[k]),
+                                      np.sign(seq[k]))
+
+    head = 2 * kb * L
+    d = StreamDemodulator(cfg, cuda_device)
+    first = [d.process(x[:head])]
+    d.sync()
+    first += d._backlog
+    n_head = sum(len(p) for p in first)
+    carry0 = {k: v[0] for k, v in carry_to_numpy(d._carry).items()}
+    span = demod_span_turbo(cfg, carry0, iq_to_f32(x[head:head + 4 * kb * L]),
+                            chunks=4, device=cuda_device)
+    assert span.verified_lanes >= (1 if cfg.oqpsk else 4)
+    want = seq[n_head:n_head + len(span.symbols)]
+    np.testing.assert_array_equal(span.symbols["locked_once"],
+                                  want["locked_once"])
+    for k in ("re", "im"):
+        np.testing.assert_array_equal(np.sign(quantize(span.symbols[k])),
+                                      np.sign(quantize(want[k])))

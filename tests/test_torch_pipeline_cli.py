@@ -262,17 +262,158 @@ def test_cli_output_is_the_oracle_bitwise(fixtures, port_cli):
     np.testing.assert_array_equal(port_cli["wav16"], ref)
 
 
+def _run_in_pty(argv, env, timeout_s=240):
+    """Run argv under a pseudo-terminal of 30 x 100; press a key once the
+    TUI asks for one. Returns (exit code, everything it drew)."""
+    import fcntl
+    import pty
+    import select
+    import struct
+    import termios
+    import time
+    master, slave = pty.openpty()
+    fcntl.ioctl(slave, termios.TIOCSWINSZ, struct.pack("HHHH", 30, 100, 0, 0))
+    p = subprocess.Popen(argv, stdin=slave, stdout=slave,
+                         stderr=subprocess.DEVNULL, env=env, cwd=REPO)
+    os.close(slave)
+    buf, quit_sent = b"", False
+    deadline = time.time() + timeout_s
+    while time.time() < deadline and p.poll() is None:
+        r, _, _ = select.select([master], [], [], 1.0)
+        if r:
+            try:
+                data = os.read(master, 65536)
+            except OSError:
+                break
+            buf += data
+            if b"Press any key to exit" in buf and not quit_sent:
+                os.write(master, b"x")
+                quit_sent = True
+    rc = p.wait(timeout=30)
+    os.close(master)
+    return rc, buf
+
+
 @pytest.mark.parametrize("args, msg", [
     (["-B", "-T", "4"], "-T/--turbo"),
     ([], "the TUI"),
 ])
-def test_cli_refuses_unported(fixtures, args, msg, capsys):
+def test_cli_refuses_unported(fixtures, port_cli, args, msg, monkeypatch,
+                              capsys):
+    """What the CLI refused until turbo and the TUI were ported now runs.
+    -T 4 on the WAV: exit 0, the two status lines, and a .s file of the -B
+    run's length whose bytes have the -B run's signs (strict turbo is
+    decision-exact) and differ from them by less than 2 in the mean. Without
+    -B: the curses TUI in a pseudo-terminal draws its panes, finishes the
+    file and exits on a key, as tests/test_fallback_and_tui.py holds the JAX
+    package's."""
+    d, paths = fixtures
+    out = str(d / ("turbo.s" if args else "tui.s"))
+    if args:
+        monkeypatch.setenv("METEOR_DEMOD_PLATFORM", "cpu")
+        rc = cli.main(["meteor_demod_tpu_torch", *args, "-o", out,
+                       paths["wav16"]])
+        assert rc == 0
+        text = capsys.readouterr()
+        assert "not ported" not in text.err
+        assert "Turbo: 49152 samples across 4 lanes" in text.out
+        assert "passes=" in text.out and "converged=" in text.out
+        got, ref = np.fromfile(out, dtype=np.int8), port_cli["wav16"]
+        assert len(got) == len(ref)
+        np.testing.assert_array_equal(np.sign(got), np.sign(ref))
+        assert np.mean(np.abs(got.astype(np.int16) - ref)) < 2.0
+        return
+    env = dict(os.environ, TERM="xterm-256color", METEOR_DEMOD_PLATFORM="cpu")
+    rc, buf = _run_in_pty([sys.executable, "-m", "meteor_demod_tpu_torch",
+                           "-o", out, paths["wav16"]], env)
+    assert rc == 0, buf[-500:]
+    for pane in (b"LRPT Demodulator", b"PLL status", b"Data in", b"Data out",
+                 b"Demodulation complete"):
+        assert pane in buf, pane
+    np.testing.assert_array_equal(np.fromfile(out, dtype=np.int8),
+                                  port_cli["wav16"])
+
+
+def test_cli_turbo_matches_jax_cli_turbo(fixtures):
+    """-T 4 on the 16-bit WAV through both CLIs: the same .s length (symbol
+    count and lock gating) and bytes within 2 in the mean. Both demodulate
+    whole 32 KiB buffers only, as their -B paths do."""
+    d, paths = fixtures
+    out = str(d / "turbo.port.s")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("METEOR_DEMOD_PLATFORM", "cpu")
+        assert cli.main(["meteor_demod_tpu_torch", "-B", "-q", "-T", "4",
+                         "-o", out, paths["wav16"]]) == 0
+    ref_out = str(d / "turbo.jax.s")
+    _jax_cli(["-B", "-q", "-T", "4", "-o", ref_out, paths["wav16"]])
+    got = np.fromfile(out, dtype=np.int8)
+    ref = np.fromfile(ref_out, dtype=np.int8)
+    assert len(got) == len(ref) > 4000
+    assert np.mean(np.abs(got.astype(np.int16) - ref)) < 2.0
+
+
+def test_cli_turbo_on_stdin_runs(fixtures, port_cli, monkeypatch, capsys):
+    """stdin with -T takes the span route (StreamDemodulator span mode).
+    The input is shorter than one span of 4 x 16 x 8192 samples, so it is
+    buffered whole and drained at the end: the bytes of the run without -T.
+    --sweep-rescue with -T only warns."""
+    d, paths = fixtures
+    raw = open(paths["raw8"], "rb").read()
+    monkeypatch.setenv("METEOR_DEMOD_PLATFORM", "cpu")
+    seen = []
+    real = cli.StreamDemodulator
+
+    def spy(*a, **kw):
+        seen.append(kw)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(cli, "StreamDemodulator", spy)
+    out = str(d / "stdin_turbo.s")
+    monkeypatch.setattr(sys, "stdin", io.TextIOWrapper(io.BytesIO(raw)))
+    assert cli.main(["meteor_demod_tpu_torch", "-T", "4", "--sweep-rescue",
+                     "2", *_RAW_ARGS, out, "-"]) == 0
+    assert seen[-1]["span_turbo"] and seen[-1]["span_chunks"] == 4
+    assert "--sweep-rescue is ignored with -T" in capsys.readouterr().err
+    np.testing.assert_array_equal(np.fromfile(out, dtype=np.int8),
+                                  port_cli["raw8_stdin"])
+
+
+def test_cli_turbo_refuses_checkpoint(fixtures, monkeypatch, capsys):
+    """-T with --checkpoint: exit 1 and the reference's one line."""
     _, paths = fixtures
-    rc = cli.main(["meteor_demod_tpu_torch", *args, "-o", os.devnull,
-                   paths["wav16"]])
+    monkeypatch.setenv("METEOR_DEMOD_PLATFORM", "cpu")
+    rc = cli.main(["meteor_demod_tpu_torch", "-B", "-T", "4", "--checkpoint",
+                   os.devnull, "-o", os.devnull, paths["wav16"]])
     assert rc == 1
-    err = capsys.readouterr().err
-    assert err.count("\n") == 1 and msg in err and "not ported" in err
+    assert capsys.readouterr().err == (
+        "--checkpoint cannot be combined with -T/--turbo (the turbo path is "
+        "whole-file)\n")
+    assert cli.turbo_lanes(27648000, 8192) == 105
+    assert cli.turbo_lanes(10 ** 9, 8192) == 128 == cli.TURBO_MAX_LANES
+    assert cli.turbo_lanes(5000, 8192) == 1
+
+
+def test_cli_profile_leaves_a_trace(monkeypatch, tmp_path):
+    """METEOR_DEMOD_PROFILE=<dir>: the run leaves a torch.profiler trace
+    file there, and the output is the unprofiled run's."""
+    x, _ = synth_psk(2700, 230400, carrier_hz=120.0, amplitude=6000.0,
+                     snr_db=20.0, seed=4)      # one block: profiling is slow
+    wav = str(tmp_path / "short.wav")
+    write_wav(wav, x, 230400, 16)
+    monkeypatch.setenv("METEOR_DEMOD_PLATFORM", "cpu")
+    outs = []
+    for name, prof in (("plain.s", None), ("prof.s", str(tmp_path / "prof"))):
+        if prof:
+            monkeypatch.setenv("METEOR_DEMOD_PROFILE", prof)
+        assert cli.main(["meteor_demod_tpu_torch", "-B", "-q", "-o",
+                         str(tmp_path / name), wav]) == 0
+        outs.append(np.fromfile(str(tmp_path / name), dtype=np.int8))
+    np.testing.assert_array_equal(outs[0], outs[1])
+    assert len(outs[0]) > 0       # the partial ring flushed at EOF
+    traces = os.listdir(tmp_path / "prof")
+    assert len(traces) == 1 and traces[0].endswith(".json")
+    text = open(tmp_path / "prof" / traces[0]).read()
+    assert "traceEvents" in text and "aten::" in text
 
 
 def test_cli_without_cuda_raises(fixtures, monkeypatch):
