@@ -2,11 +2,13 @@
 """Measurements of the PyTorch + CUDA port on one card, for PERF.md.
 
     python3 chip_measure.py [--json OUT.json] [--sections a,b,...]
-                            [--ab OTHER.cu [OTHER2.cu ...]]
+                            [--ab OTHER.cu [OTHER2.cu ...]] [--tree DIR]
 
 Both modes (230.4 ksps, block_len 8192: QPSK 72 ksym/s and OQPSK 80 ksym/s).
-Prints one line per figure, each taken in this run. Sections (all but `ab`,
-`turbo` and `lanes` by default):
+Prints one line per figure, each taken in this run. --tree DIR measures the
+package of another checkout (an earlier commit unpacked with git archive)
+with this script, so that two trees are compared in one call. Sections (all
+but `ab`, `turbo`, `lanes` and `cli` by default):
   sweep   each recurrence kernel's ms per block against the stream count B
           (CUDA events, 10 launches each; Ft tiled from 128 simulated
           streams), and B = 128 on an Ft of 32 distinct streams tiled four
@@ -45,6 +47,9 @@ Prints one line per figure, each taken in this run. Sections (all but `ab`,
           the kernel alone and the FIR alone, ms per block at B = 104, 105,
           108 and 128 per mode (CUDA events, 20 calls a reading, the counts
           in turns forward and back);
+  cli     the CLI's -T 0 on chip_smoke.py (h)'s 120 s 16-bit WAV, per mode,
+          in this process as (h) runs it: a warm-up run, then CLI_RUNS
+          timed runs (wall seconds of cli.main);
   ab      with --ab: the tree's csrc/block_demod.cu against each other
           source given (an earlier commit's copy, a variant under test),
           built with the same flags plus -Xptxas -v (registers and spills are
@@ -74,7 +79,8 @@ import numpy as np
 import torch
 
 SECTIONS = ("sweep", "fir", "fleet", "driver", "serving", "stream")
-OPT_IN = ("turbo", "lanes")    # only when named in --sections
+OPT_IN = ("turbo", "lanes", "cli")    # only when named in --sections
+CLI_RUNS = 3
 LANE_B = (104, 105, 108, 128)
 TURBO_RUNS = {120: (32, 105, 128, 512), 600: (32, 128, 512, 2048)}
 SWEEP_B = (1, 32, 128, 512, 1024, 4096, 16896, 33792)
@@ -465,7 +471,7 @@ def turbo_stages(times: dict):
             return out
         return call
 
-    names = dict(to_device="upload", to_host="readback",
+    names = dict(to_device="upload", _lanes_to_host="readback",
                  _assemble_qpsk_gauge="assemble",
                  _assemble_oqpsk_gauge="assemble", _sequential_from="tail")
     saved = {n: getattr(turbo, n) for n in (*names, "make_pass_runner")}
@@ -580,6 +586,30 @@ def section_turbo(cfgs: dict, dev, res: dict) -> None:
         del x
 
 
+def section_cli(cfgs: dict, dev, res: dict) -> None:
+    """The CLI's -T 0 on (h)'s recording (see the module docstring)."""
+    import chip_smoke as cs
+    from meteor_demod_tpu_torch import cli
+    from meteor_demod_tpu_torch.sim import write_wav
+    for mode, cfg in cfgs.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            wav = os.path.join(tmp, "pass.wav")
+            write_wav(wav, cs.tiled_signal(cfg, cs.TURBO_SECONDS), cs.FS, 16)
+            argv = ["meteor_demod_tpu_torch", "-B", "-q",
+                    *cs.MODES[mode]["cli"], "-T", "0", "-o",
+                    os.path.join(tmp, "out.s"), wav]
+            walls = []
+            for i in range(CLI_RUNS + 1):         # 0: warm-up
+                t0 = time.perf_counter()
+                if cli.main(argv) != 0:
+                    raise RuntimeError(f"{mode} CLI -T 0 failed")
+                walls.append(time.perf_counter() - t0)
+        print(f"{mode} CLI -T 0 on {cs.TURBO_SECONDS} s: "
+              f"{' / '.join(f'{w:.3f}' for w in walls[1:])} s (warm-up "
+              f"{walls[0]:.3f} s)", flush=True)
+        res[f"{mode}_cli_T0_s"] = walls[1:]
+
+
 def section_ab(cfgs: dict, dev, res: dict, others: list[str]) -> None:
     """The tree's kernels against the sources in `others` (see the module
     docstring)."""
@@ -648,17 +678,24 @@ def main() -> int:
                     + ",".join(OPT_IN) + ")")
     ap.add_argument("--ab", nargs="+", default=[], metavar="OTHER.cu",
                     help="time the tree's kernels against these sources")
+    ap.add_argument("--tree", metavar="DIR",
+                    help="measure the package of this checkout instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.stderr.write("chip_measure: no CUDA card\n")
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import chip_smoke                     # noqa: F401  (this script's own)
+    if args.tree:
+        sys.path.insert(0, os.path.abspath(args.tree))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}",
+    import meteor_demod_tpu_torch as pkg
+    print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}"
+          f"; package {os.path.dirname(os.path.abspath(pkg.__file__))}",
           flush=True)
     dev = torch.device("cuda")
     cfgs = mode_configs()
@@ -668,7 +705,7 @@ def main() -> int:
     run = dict(sweep=section_sweep, fir=section_fir, fleet=section_fleet,
                driver=section_driver, serving=section_serving,
                stream=section_stream, turbo=section_turbo,
-               lanes=section_lanes)
+               lanes=section_lanes, cli=section_cli)
     for name in filter(None, args.sections.split(",")):
         run[name](cfgs, dev, res)
 

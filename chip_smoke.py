@@ -35,14 +35,14 @@ Phases, one line each; any failed check raises and the script exits non-zero:
       first 6 s of the same WAV);
   (e), (e-oq) the fleet driver at full width: FleetDemodulator(cfg, 128,
       chain_blocks=16, ingest="i16", packed_output=True) on the card (its
-      default device) over (c)'s kind of fixture rounded to int16, 4 chains:
+      default device) over (c)'s kind of fixture rounded to int16, 3 chains:
       int8 outputs bitwise equal to make_batch_demod block by block on the
       decoded float input plus the host quantizer, no flags, no recovered
-      stream, telemetry `symbols` equal to the sum of `valid`, 64 kernel
+      stream, telemetry `symbols` equal to the sum of `valid`, 48 kernel
       launches (one per block); Msamples/s, and the host's share of a chain
       (wall time less the torch.profiler sum of device time);
   (f), (f-oq) the fleet checkpoint: saved after chain 2 of (e), loaded, and
-      chains 3-4 run on the loaded fleet: outputs and every carry leaf
+      chain 3 runs on the loaded fleet: outputs and every carry leaf
       bitwise equal to the uninterrupted run's;
   (g) the serving host: `python -m meteor_demod_tpu_torch.serve_fleet --synth
       256 --dead 2 --group-size 128 --chain 16` on 6 s of signal as a
@@ -71,8 +71,23 @@ Phases, one line each; any failed check raises and the script exits non-zero:
       8192-sample pieces: at least 5 spans (a span is 32 x 16 x 8192
       samples, 18.2 s), soft-byte signs and locked_once equal to the
       sequential stream's.
-Each main path, QPSK ((c), (d), (e), (f), (h), (i)) and OQPSK (the same with
--oq), is driven with both kernels' launch counts and the counts of blocks replayed by
+  (j) several devices: the shards are every card when there are several
+      (and they divide 128 and 104), else two shards over the cards there
+      are, both on cuda:0 with one card. On them: (e)'s QPSK fleet driver,
+      FleetDemodulator(..., mesh=shards) on (e)'s int16 input, 3 chains:
+      int8 outputs bitwise equal to (e)'s, carry and integer telemetry after
+      chain 2 equal to (e)'s, mean_agc_gain within rtol 1e-6, Msamples/s
+      beside (e)'s; demod_array_turbo(mesh=shards) on (h)'s 120 s recording
+      at 104 lanes bitwise equal to one device's at 104 lanes (symbols,
+      gauges, passes); the time-sharded FIR (parallel/timeshard.py) over 64
+      blocks of it against one call, bitwise or else within the FIR budget
+      (rtol 1e-5, atol 1e-5 max|F|) with the first differing tick printed; a
+      2-process MultiHostFleet (this script run twice with --mh-worker,
+      gloo over localhost, cuda:0 each, 64 streams a process x 2 blocks)
+      whose rows are bitwise the single-process fleet's and whose telemetry
+      is the same in both processes; and dryrun_multichip(4).
+Each main path, QPSK ((c), (d), (e), (f), (h), (i), (j)) and OQPSK (the same
+with -oq, no (j)), is driven with both kernels' launch counts and the counts of blocks replayed by
 the numpy oracle on the host set to 0 just before it and read just after:
 the path's own kernel must have launched, the other kernel not at all, and
 the replay counts must be 0, so that every block came from the card. (The
@@ -81,6 +96,7 @@ counts.) The line before the last is the kernels' JSON record, the last line
 is {"ok": true, ...}.
 
 Imports nothing of JAX or of the JAX package. Exits 1 without a CUDA card.
+Needs one card; with more, (j) spans them.
 """
 
 from __future__ import annotations
@@ -89,6 +105,7 @@ import filecmp
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -103,9 +120,12 @@ N_FLEET = 128
 CHAIN = 16
 CLI_SECONDS = 30
 PIECE_S = 3          # the CLI fixture is a PIECE_S-second sim piece, tiled
-FLEET_CHAINS = 4     # (e): chains of CHAIN blocks through the fleet driver
+FLEET_CHAINS = 3     # (e): chains of CHAIN blocks through the fleet driver
 TURBO_SECONDS = 120  # (h), (i): the turbo recording, (d)'s piece tiled
 SPAN_LANES = 32      # (i): -T 32 on stdin
+MESH_LANES = 104     # (j): turbo's lanes over the shards (a multiple of 8)
+FIR_BLOCKS = 64      # (j): the time-sharded FIR's length in blocks
+MH_BLOCKS = 2        # (j): blocks through the 2-process MultiHostFleet
 # (g): the serving host's fleet. 6 s of signal, not the 10 s of a short pass:
 # synthesizing 254 passes on the host costs ~10 s per second of signal, three
 # times over, and is set-up, not serving.
@@ -525,6 +545,7 @@ def phase_ef(cfg, dev, card: str, tag: str) -> None:
                   f"{fleet.telemetry['symbols']} != {got.valid.sum()}")
             if c == 1:
                 save_fleet_checkpoint(ckpt, fleet)
+                after_two = (leaves(fleet.carry), dict(fleet.telemetry))
         launched = kernel(mode).launches
         check(launched == n_blocks, f"({tag}) {launched} kernel launches for "
               f"{n_blocks} blocks")
@@ -538,6 +559,8 @@ def phase_ef(cfg, dev, card: str, tag: str) -> None:
         wall = float(np.mean(walls[1:]))
         msps = N_FLEET * span / wall / 1e6
         locked = int(fleet.telemetry["locked_streams"])
+        if not cfg.oqpsk:
+            MESHED.update(raw=raw, outs=outs, after_two=after_two, msps=msps)
 
         # ---- (f): resume from the checkpoint taken after chain 2 ----------
         ftag = tag.replace("e", "f", 1)
@@ -567,13 +590,16 @@ def phase_ef(cfg, dev, card: str, tag: str) -> None:
         f"chain (first {walls[0] * 1e3:.1f}), {msps:.1f} Msamples/s; device "
         f"busy {busy:.2f} ms of a chain, host {wall * 1e3 - busy:.2f} ms "
         f"(profiled chain: {prof_wall:.2f} ms wall) on {card}")
-    say(f"({ftag}) fleet checkpoint after chain 2, loaded, chains 3-4: "
+    say(f"({ftag}) fleet checkpoint after chain 2, loaded, chain 3: "
         f"outputs and all {len(final)} carry leaves bitwise equal to the "
         f"uninterrupted run on {card}")
 
 
 # What (h) leaves for (i), per mode: the recording's files and (h)'s results.
 TURBO = {}
+# What (e) and (h) leave for (j), QPSK only: (e)'s int16 input, its outputs,
+# carry and telemetry after chain 2 and its rate; (h)'s recording.
+MESHED = {}
 
 
 def byte_diff(a: np.ndarray, b: np.ndarray) -> float:
@@ -611,11 +637,16 @@ def phase_h(cfg, dev, card: str, tag: str) -> None:
         f.write(payload)
     x = decode_iq(payload, 16)            # the samples both CLI runs decode
     blocks = len(x) // L
-    lanes = cli.turbo_lanes(len(x), L)
+    # The CLI's -T 0 spreads its lanes over every card (mesh="auto"): one
+    # card gives 105 lanes, several a multiple of their count, one shard each.
+    n_dev = torch.cuda.device_count()
+    lanes = cli.turbo_lanes(len(x), L, n_dev)
+    shards = n_dev if n_dev > 1 and lanes % n_dev == 0 else 1
     kb = len(x) // (lanes * L)
     kb_w = default_warmup_blocks(L, kb)
     tail = blocks - lanes * kb
-    check((len(x), blocks, lanes, kb, tail) == (27648000, 3375, 105, 32, 15),
+    check((len(x), blocks) == (27648000, 3375) and (
+        n_dev > 1 or (lanes, kb, tail) == (105, 32, 15)),
           f"({tag}) geometry {(len(x), blocks, lanes, kb, tail)}")
     os.environ.pop("METEOR_DEMOD_PLATFORM", None)        # the card
     soft, secs = {}, {}
@@ -630,9 +661,10 @@ def phase_h(cfg, dev, card: str, tag: str) -> None:
         soft[name] = np.fromfile(out, dtype=np.int8)
         if name == "turbo":
             launched = kernel(mode).launches - before
-            check(kb_w + 2 * kb <= launched <= kb_w + 4 * kb + tail,
+            check(shards * (kb_w + 2 * kb) <= launched
+                  <= shards * (kb_w + 4 * kb) + tail,
                   f"({tag}) -T 0 launched the kernel {launched} times; "
-                  f"{kb_w} + 2..4 x {kb} + {tail} expected")
+                  f"{shards} x ({kb_w} + 2..4 x {kb}) + {tail} expected")
     check(len(soft["turbo"]) == len(soft["batch"]), f"({tag}) -T 0 wrote "
           f"{len(soft['turbo'])} bytes, -B {len(soft['batch'])}")
     diff = byte_diff(soft["turbo"], soft["batch"])
@@ -662,6 +694,8 @@ def phase_h(cfg, dev, card: str, tag: str) -> None:
     hist = np.bincount(res.gauges % 4, minlength=4).tolist()
     TURBO[tag.replace("h", "i", 1)] = dict(tmp=tmp, raw=raw, seq=seq, x=x,
                                            batch=soft["batch"])
+    if not cfg.oqpsk:
+        MESHED.update(x=x, turbo_s=t_turbo)
     say(f"({tag}) CLI -B -T 0 {' '.join(mode['cli'])} on {TURBO_SECONDS} s of "
         f"16-bit 230.4 ksps {'OQPSK' if cfg.oqpsk else 'QPSK'}: {lanes} lanes "
         f"x {kb} blocks (warm-up {kb_w}) + {tail}-block tail, {launched} "
@@ -813,6 +847,211 @@ def phase_g(card: str) -> None:
         f"(synthesis and start-up excluded) on {card}")
 
 
+def smoke_mesh() -> list:
+    """(j)'s shards: every card when there are several and they divide the
+    fleet's streams and MESH_LANES, else two shards over the cards there
+    are (both on cuda:0 on a machine with one card)."""
+    n = torch.cuda.device_count()
+    if n > 1 and N_FLEET % n == 0 and MESH_LANES % n == 0:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [torch.device("cuda", i % n) for i in range(2)]
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mh_worker(rank: int, port: int, tmp: str, device: str) -> int:
+    """One process of (j)'s 2-process MultiHostFleet: joins the gloo job,
+    runs its half of tmp/data.npy ((streams, blocks, block_len, 2) float32)
+    block by block on `device` and writes its rows, the job's telemetry and
+    its kernel launches to tmp/w<rank>.npz."""
+    from meteor_demod_tpu_torch.config import DemodConfig
+    from meteor_demod_tpu_torch.kernels.block_demod import block_demod
+    from meteor_demod_tpu_torch.parallel.multihost import (MultiHostFleet,
+                                                           init_distributed)
+    init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank,
+                     timeout_s=120)
+    data = np.load(os.path.join(tmp, "data.npy"))
+    n_streams, n_blocks, L = data.shape[:3]
+    cfg = DemodConfig(samplerate=FS, block_len=L)
+    fleet = MultiHostFleet(cfg, n_streams // 2, mesh=[device])
+    check(fleet.n_streams == n_streams, f"worker {rank}: {fleet.n_streams} "
+          f"streams in the job, {n_streams} in the data")
+    sl = fleet.local_stream_slice()
+    block_demod.launches = 0
+    outs = [fleet.process_local_blocks(data[sl, b]) for b in range(n_blocks)]
+    np.savez(os.path.join(tmp, f"w{rank}.npz"), start=sl.start, stop=sl.stop,
+             launches=block_demod.launches,
+             **{k: np.concatenate([getattr(o, k) for o in outs], axis=1)
+                for k in ("sym_re", "sym_im", "valid", "locked_once")},
+             **{f"tel_{k}": v for k, v in fleet.telemetry.items()})
+    return 0
+
+
+def phase_j(cfg, dev, card: str) -> None:
+    """Several devices: the fleet driver, turbo and the time-sharded FIR
+    over (j)'s shards, a 2-process MultiHostFleet and dryrun_multichip(4);
+    see the module docstring."""
+    from meteor_demod_tpu_torch.demod.turbo import demod_array_turbo
+    from meteor_demod_tpu_torch.dryrun import dryrun_multichip
+    from meteor_demod_tpu_torch.dsp.fir import (iq_to_f32, make_fir_banks,
+                                                polyphase_fir_block)
+    from meteor_demod_tpu_torch.parallel.mesh import FleetDemodulator
+    from meteor_demod_tpu_torch.parallel.timeshard import make_sharded_fir
+    from meteor_demod_tpu_torch.utils import (STAGE_BYTES, make_mesh,
+                                              to_device, to_host)
+    mesh = smoke_mesh()
+    names = ", ".join(map(str, mesh))
+    e, x = dict(MESHED), MESHED.pop("x")
+    MESHED.clear()
+    L, span = cfg.block_len, CHAIN * cfg.block_len
+
+    # ---- the copies: more than two staging pieces to and from each card,
+    # with another card (or none) current --------------------------------
+    cards = make_mesh()
+    a = np.random.default_rng(SEED).standard_normal(
+        ((5 * STAGE_BYTES) // (4 * 2 * 1024) + 3, 1024, 2)).astype(np.float32)
+    ups = []
+    for i, card_dev in enumerate(cards):
+        with torch.cuda.device(cards[(i + 1) % len(cards)]):
+            ups.append(to_device(a, card_dev) * 1)
+    for up, back in zip(ups, to_host(ups)):
+        check(np.array_equal(back, a), f"(j) round trip through {up.device} "
+              f"differs")
+    del ups
+
+    # ---- the fleet driver over the shards against (e) -----------------
+    fleet = FleetDemodulator(cfg, N_FLEET, chain_blocks=CHAIN, ingest="i16",
+                             packed_output=True, mesh=mesh)
+    walls = []
+    for c in range(3):
+        t0 = time.perf_counter()
+        got = fleet.process_blocks(e["raw"][:, c * span:(c + 1) * span])
+        walls.append(time.perf_counter() - t0)
+        for k in ("sym_i", "sym_q", "valid", "locked_once"):
+            check(np.array_equal(getattr(got, k), getattr(e["outs"][c], k)),
+                  f"(j) chain {c}: sharded fleet {k} differs from (e)'s")
+        check(not fleet.stream_flags.any(), f"(j) chain {c}: flags on "
+              f"streams {fleet.flagged_streams()}")
+        if c == 1:
+            carry, tel = leaves(fleet.carry), dict(fleet.telemetry)
+            want_carry, want_tel = e["after_two"]
+            for k in carry:
+                check(np.array_equal(carry[k], want_carry[k]),
+                      f"(j) carry {k} after chain 2 differs from (e)'s")
+            for k in tel:
+                check(tel[k] == want_tel[k] if k != "mean_agc_gain" else
+                      np.isclose(tel[k], want_tel[k], rtol=1e-6, atol=0),
+                      f"(j) telemetry {k} {tel[k]} != (e)'s {want_tel[k]}")
+    check(fleet.recovered_streams == 0, "(j) streams recovered on the host")
+    msps = N_FLEET * span / float(np.mean(walls[1:])) / 1e6
+
+    # ---- turbo's lanes over the shards against one device -------------
+    t0 = time.perf_counter()
+    one = demod_array_turbo(cfg, x, chunks=MESH_LANES, strict=True,
+                            device=mesh[0])
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    two = demod_array_turbo(cfg, x, chunks=MESH_LANES, strict=True, mesh=mesh)
+    t_two = time.perf_counter() - t0
+    check(one.converged and two.converged and not two.fell_back,
+          f"(j) turbo converged {one.converged} / {two.converged}")
+    check(two.passes == one.passes and np.array_equal(two.gauges, one.gauges),
+          f"(j) turbo passes {two.passes} / {one.passes} or gauges differ")
+    for k in ("re", "im", "locked_once"):
+        check(np.array_equal(two.symbols[k], one.symbols[k]),
+              f"(j) sharded turbo {k} differs from one device's")
+
+    # ---- one stream's FIR split along time against one call ------------
+    xt = iq_to_f32(np.ascontiguousarray(x[:FIR_BLOCKS * L]))
+    parts = make_sharded_fir(cfg, mesh)(xt)
+    got = torch.cat([p.to(dev) for p in parts])
+    ref, _ = polyphase_fir_block(
+        torch.as_tensor(xt[None], device=dev),
+        torch.zeros((1, cfg.taps - 1, 2), device=dev),
+        torch.as_tensor(make_fir_banks(cfg), device=dev))
+    bad = torch.nonzero((got != ref).flatten()).flatten()
+    if len(bad):
+        # cuDNN may pick another algorithm for another length: hold the FIR
+        # budget (tests/test_torch_fir.py) and report the first tick.
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        check(bool(torch.all((got - ref).abs()
+                             <= 1e-5 * scale + 1e-5 * ref.abs())),
+              f"(j) time-sharded FIR outside the FIR budget: max |err| {err}")
+        fir_note = (f"NOT bitwise: first differing tick "
+                    f"{int(bad[0]) // (2 * ref.shape[2])} of {ref.shape[0]}, "
+                    f"max |err| {err:.3g} of max |F| {scale:.3g}, within "
+                    f"the FIR budget")
+    else:
+        fir_note = "bitwise"
+
+    # ---- one fleet over two processes (gloo), each on cuda:0 ------------
+    data = fleet_iq(cfg, N_FLEET, MH_BLOCKS * L, SEED + 3, dev).cpu().numpy()
+    ref_fleet = FleetDemodulator(cfg, N_FLEET, device=dev)
+    want = [ref_fleet.process_blocks(data[:, b * L:(b + 1) * L])
+            for b in range(MH_BLOCKS)]
+    want = {k: np.concatenate([getattr(o, k) for o in want], axis=1)
+            for k in ("sym_re", "sym_im", "valid", "locked_once")}
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "data.npy"),
+                data.reshape(N_FLEET, MH_BLOCKS, L, 2))
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mh-worker",
+             str(rank), str(port), tmp, str(mesh[0])], env=env, cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for rank in (0, 1)]
+        logs = [p.communicate(timeout=240)[0].decode() for p in procs]
+        t_mh = time.perf_counter() - t0
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"(j) multihost worker {rank} exit "
+                  f"{p.returncode}:\n{log[-3000:]}")
+        ws = [dict(np.load(os.path.join(tmp, f"w{r}.npz"))) for r in (0, 1)]
+    for r, w in enumerate(ws):
+        sl = slice(int(w["start"]), int(w["stop"]))
+        check(int(w["launches"]) == MH_BLOCKS, f"(j) worker {r} launched the "
+              f"kernel {int(w['launches'])} times")
+        for k, v in want.items():
+            check(np.array_equal(w[k], v[sl]), f"(j) worker {r} rows {sl} "
+                  f"{k} differ from the single-process fleet's")
+        for k, v in ref_fleet.telemetry.items():
+            t = w[f"tel_{k}"]
+            check(t == ws[0][f"tel_{k}"], f"(j) telemetry {k} differs "
+                  f"between the processes")
+            check(int(t) == int(v) if k != "mean_agc_gain" else
+                  np.isclose(t, v, rtol=1e-6, atol=0),
+                  f"(j) job telemetry {k} {t} != one process's {v}")
+
+    # ---- the dry run ---------------------------------------------------
+    t0 = time.perf_counter()
+    dryrun_multichip(4)
+    t_dry = time.perf_counter() - t0
+    say(f"(j) several devices, shards on {names} "
+        f"({torch.cuda.device_count()} card(s)): {a.nbytes >> 20} MiB to and "
+        f"from each card and back bitwise; fleet driver {N_FLEET} x "
+        f"{CHAIN} blocks x 3 chains (i16 in, int8 out) == (e) bitwise, carry "
+        f"and integer telemetry after chain 2 equal, mean_agc_gain within "
+        f"1e-6; {float(np.mean(walls[1:])) * 1e3:.2f} ms per chain, "
+        f"{msps:.1f} Msamples/s beside (e)'s {e['msps']:.1f} on one shard; "
+        f"demod_array_turbo at {MESH_LANES} lanes on {TURBO_SECONDS} s == one "
+        f"device bitwise ({two.passes} passes, {len(two.symbols)} symbols), "
+        f"{t_two:.2f} s against {t_one:.2f} s on one device ((h)'s "
+        f"{e['turbo_s']:.2f} s at 105 lanes); time-sharded FIR over "
+        f"{FIR_BLOCKS} blocks: {fir_note}; 2-process MultiHostFleet (gloo, "
+        f"{mesh[0]} each, {N_FLEET // 2} streams a process x {MH_BLOCKS} "
+        f"blocks) "
+        f"rows == the single-process fleet's bitwise, telemetry the same in "
+        f"both, {t_mh:.1f} s with start-up; dryrun_multichip(4) ok in "
+        f"{t_dry:.1f} s on {card}")
+
+
 def kernel(mode: dict):
     """The wrapper of mode's kernel; its .launches is the kernel's count."""
     from meteor_demod_tpu_torch.kernels import block_demod as kb
@@ -844,6 +1083,9 @@ def main_path(cfg, dev, smi: str, mode: dict, other: dict) -> int:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--mh-worker"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return mh_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6])
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA card "
                          "(torch.cuda.is_available() is false)\n")
@@ -862,7 +1104,8 @@ def main() -> int:
     _build.load("block_demod")
     say(f"(a) built {KERNEL_SOURCE} with nvcc in "
         f"{time.perf_counter() - t0:.2f} s ({'fresh' if fresh else 'cached'}"
-        f"); torch {torch.__version__}, CUDA {torch.version.cuda}; {card}")
+        f"); torch {torch.__version__}, CUDA {torch.version.cuda}; {card}; "
+        f"torch.cuda.device_count() {torch.cuda.device_count()}")
 
     cfgs = dict(qpsk=DemodConfig(samplerate=FS),
                 oqpsk=DemodConfig(samplerate=FS, symrate=80000.0, oqpsk=True))
@@ -874,6 +1117,17 @@ def main() -> int:
     for m, other in (("qpsk", "oqpsk"), ("oqpsk", "qpsk")):
         rec[m]["launches"] = main_path(cfgs[m], dev, smi, MODES[m],
                                        MODES[other])
+    # (j) is a QPSK path of its own, read like the others; the 2-process
+    # fleet's launches are the workers' and are checked from their files.
+    from meteor_demod_tpu_torch.demod.pipeline import StreamDemodulator
+    kernel(MODES["qpsk"]).launches = kernel(MODES["oqpsk"]).launches = 0
+    StreamDemodulator.replayed_blocks = 0
+    phase_j(cfgs["qpsk"], dev, smi)
+    check(StreamDemodulator.replayed_blocks == 0, "(j) blocks were replayed "
+          "on the host")
+    check(kernel(MODES["oqpsk"]).launches == 0, "(j) launched the OQPSK kernel")
+    check(kernel(MODES["qpsk"]).launches > 0, "(j) never launched its kernel")
+    rec["qpsk"]["launches"] += kernel(MODES["qpsk"]).launches
     phase_g(smi)
 
     say(json.dumps({"kernels": [{

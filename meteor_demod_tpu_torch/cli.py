@@ -39,10 +39,10 @@ from .io.checkpoint import load_checkpoint, save_checkpoint
 from .io.wav import FILE_BUFFER_SIZE, decode_iq, open_input, read_sample_blocks
 from .io.writer import SymbolWriter
 from .profiling import maybe_trace
-from .utils import gen_fname, human_to_float, select_device
+from .utils import gen_fname, human_to_float, make_mesh, select_device
 
-# -T 0 fills at most this many lanes of a launch, each lane with at least
-# TURBO_MIN_BLOCKS blocks so that the gauge warmup can mature
+# -T 0 fills at most this many lanes of a launch per device, each lane with
+# at least TURBO_MIN_BLOCKS blocks so that the gauge warmup can mature
 # (turbo.default_warmup_blocks targets 65536 samples).
 TURBO_MAX_LANES = 128
 TURBO_MIN_BLOCKS = 32
@@ -331,7 +331,7 @@ def main(argv: list[str] | None = None) -> int:
 
     if opts.turbo_chunks is not None and not is_stdin:
         with maybe_trace():
-            return _run_turbo(opts, cfg, device, samples_file, soft_file, bps)
+            return _run_turbo(opts, cfg, samples_file, soft_file, bps)
 
     # stdin + -T: the whole file is never in hand, so apply the turbo
     # machinery to buffered SPANS instead (turbo.span_submit): live/piped
@@ -415,20 +415,26 @@ def main(argv: list[str] | None = None) -> int:
     return 0
 
 
-def turbo_lanes(n_samples: int, block_len: int) -> int:
-    """-T 0: fill the lanes of a launch, but keep each lane's chunk at
-    TURBO_MIN_BLOCKS blocks or more; short recordings get fewer, longer
-    chunks."""
-    return int(np.clip(n_samples // (TURBO_MIN_BLOCKS * block_len),
-                       1, TURBO_MAX_LANES))
+def turbo_lanes(n_samples: int, block_len: int, n_dev: int = 1) -> int:
+    """-T 0: fill the lanes of a launch on each of n_dev devices, but keep
+    each lane's chunk at TURBO_MIN_BLOCKS blocks or more; short recordings
+    get fewer, longer chunks. A count of at least n_dev snaps down to a
+    multiple of n_dev, so that the lanes shard over the devices."""
+    chunks = int(np.clip(n_samples // (TURBO_MIN_BLOCKS * block_len),
+                         1, TURBO_MAX_LANES * n_dev))
+    if chunks >= n_dev:
+        chunks -= chunks % n_dev
+    return chunks
 
 
-def _run_turbo(opts: Options, cfg: DemodConfig, device, samples_file,
-               soft_file, bps: int) -> int:
+def _run_turbo(opts: Options, cfg: DemodConfig, samples_file, soft_file,
+               bps: int) -> int:
     """Offline chunk-parallel demodulation of the whole file (-T <chunks>).
 
-    Reads all samples, runs demod_array_turbo across the batch lanes of the
-    card, and writes the usual lock-gated int8 soft-symbol stream."""
+    Reads all samples, runs demod_array_turbo across the batch lanes of
+    every visible card (the lanes sharded over the cards when there are
+    several, mesh="auto"), and writes the usual lock-gated int8 soft-symbol
+    stream (one device, the CPU, under METEOR_DEMOD_PLATFORM=cpu)."""
     from .demod.turbo import demod_array_turbo
 
     raw = samples_file.read()
@@ -438,12 +444,12 @@ def _run_turbo(opts: Options, cfg: DemodConfig, device, samples_file,
     # different symbol streams for the same file.
     raw = raw[:len(raw) - len(raw) % FILE_BUFFER_SIZE]
     x = decode_iq(raw, bps)
-    chunks = opts.turbo_chunks or turbo_lanes(len(x), cfg.block_len)
+    chunks = opts.turbo_chunks or turbo_lanes(len(x), cfg.block_len,
+                                              len(make_mesh()))
     info = sys.stderr if opts.stdout_mode else sys.stdout
     if not opts.quiet:
         print(f"Turbo: {len(x)} samples across {chunks} lanes", file=info)
-    res = demod_array_turbo(cfg, x, chunks=chunks, device=device,
-                            strict=True)
+    res = demod_array_turbo(cfg, x, chunks=chunks, mesh="auto", strict=True)
     w = SymbolWriter(soft_file)
     w.feed(quantize_symbols(res.symbols), res.symbols["locked_once"])
     w.flush_partial()

@@ -58,10 +58,17 @@ pre-fire). A carry on the host is the dict of numpy leaves of
 state.carry_to_numpy, with a leading lane axis; the gauge bookkeeping stays
 on the host in float64 and one carry crosses to the device and back a pass.
 
+Several devices (demod_array_turbo's mesh=): the lanes split into equal
+contiguous shards (parallel/mesh.py Shards), one per device of the list,
+each running the same per-lane program on its own lanes, so the result is
+bitwise the one-device result. The lane shift, the gauges and the
+fingerprints stay on the host in global lane order; the sequential tail and
+any fallback run on the first device.
+
 This is the JAX package's demod/turbo.py without its fused single-dispatch
-program, its locked passes, its packed carry and its device mesh, all of
-which served the TPU's host link or window geometry (ROADMAP.md list D); the
-per-pass loop they were held equal to is the one implementation here.
+program, its locked passes and its packed carry, all of which served the
+TPU's host link or window geometry (ROADMAP.md list D); the per-pass loop
+they were held equal to is the one implementation here.
 """
 
 from __future__ import annotations
@@ -74,8 +81,8 @@ import torch
 from .. import constants as C
 from ..config import DemodConfig
 from ..dsp.fir import f32_to_iq, iq_to_f32
-from ..parallel.mesh import make_fleet_demod
-from ..utils import select_device, to_device, to_host
+from ..parallel.mesh import Shards, make_fleet_demod
+from ..utils import make_mesh, select_device, to_device, to_host
 from .pipeline import _SYM_DTYPE, StreamDemodulator, quantize
 from .state import (CARRY_FIELDS, BlockOutput, PackedOutput, batch_carry_np,
                     carry_from_numpy, carry_to_numpy)
@@ -143,7 +150,8 @@ def lane_fingerprint(outs: BlockOutput):
     return v.sum(1).to(torch.int32), _wrap_i32(cs), _wrap_i32(cs2)
 
 
-def output_fingerprint(outs: BlockOutput, rows: int):
+def output_fingerprint(outs: BlockOutput, rows: int, lane0: int = 0,
+                       lanes: int | None = None):
     """Fingerprint of a pass's int8-quantized output: (n_valid, checksum),
     0-d int32 tensors on outs' device.
 
@@ -152,13 +160,17 @@ def output_fingerprint(outs: BlockOutput, rows: int):
     weights into one wrapping int32. Two passes with equal fingerprints
     produced identical quantized output streams up to hash collision: the
     "symbols" convergence criterion. The position of step s of block k of
-    lane c is (k*C + c)*rows + s, block-major as the blocks were stacked."""
+    lane c is (k*C + c)*rows + s, block-major as the blocks were stacked.
+    outs may hold a shard of the C = `lanes` lanes, its first lane lane0:
+    the shards' counts and checksums then add (mod 2^32) to the whole's."""
     v = outs.valid.to(torch.int64)
-    lanes, width = v.shape
+    width = v.shape[1]
+    lanes = v.shape[0] if lanes is None else lanes
     qre = quantize(outs.sym_re).to(torch.int64)
     qim = quantize(outs.sym_im).to(torch.int64)
     col = torch.arange(width, dtype=torch.int64, device=v.device)[None]
-    lane = torch.arange(lanes, dtype=torch.int64, device=v.device)[:, None]
+    lane = torch.arange(lane0, lane0 + v.shape[0], dtype=torch.int64,
+                        device=v.device)[:, None]
     pos = ((col // rows) * lanes + lane) * rows + col % rows
     cs = (v * (pos % 8191 + 1) * (3 * qre + 5 * qim + 7)).sum()
     return v.sum().to(torch.int32), _wrap_i32(cs)
@@ -546,43 +558,102 @@ def finish_warmup_carry(cfg, wf: dict, tails_np, init_np: dict | None = None
     return w
 
 
-def make_pass_runner(cfg: DemodConfig, blocks: torch.Tensor, last_symbol=False):
+def _one_device(blocks: torch.Tensor, shards):
+    """(the shards' lane tensors, the Shards): one device's blocks become
+    one shard."""
+    if shards is not None:
+        return blocks, shards
+    return [blocks], Shards([blocks.device], blocks.shape[0], "chunks")
+
+
+def make_pass_runner(cfg: DemodConfig, blocks, last_symbol=False,
+                     shards: Shards | None = None):
     """One pass over every lane: run(g_np) -> (f_np, outs, stats).
 
-    blocks is (C, kb*L, 2) float32 on the device the pass runs on. g_np and
-    f_np are host carries (dicts of numpy leaves with a lane axis), outs the
-    pass's BlockOutput, left on the device, and stats the lane_fingerprint
-    vectors as numpy (followed by last_valid_symbol's two when last_symbol).
-    A pass is kb launches of the recurrence kernel, make_fleet_demod's
-    chain, and one small fetch."""
-    lanes, n = blocks.shape[0], blocks.shape[1]
-    step = make_fleet_demod(cfg, lanes, blocks.device, telemetry=False,
-                            chain=n // cfg.block_len)
+    blocks is (C, kb*L, 2) float32 on the device the pass runs on; or, with
+    `shards` (parallel/mesh.py Shards over the C lanes), the list of each
+    shard's (C/n, kb*L, 2) lanes on its device. g_np and f_np are host
+    carries (dicts of numpy leaves with a lane axis, all C lanes), outs the
+    pass's BlockOutput left on the device (with shards, the list of the
+    shards'), and stats the lane_fingerprint vectors as numpy (followed by
+    last_valid_symbol's two when last_symbol). A pass is kb launches of the
+    recurrence kernel per shard, make_fleet_demod's chain, every shard's
+    queued before one small fetch from each."""
+    parts, shards = _one_device(blocks, shards)
+    chain = parts[0].shape[1] // cfg.block_len
+    steps = [make_fleet_demod(cfg, shards.per, part.device, telemetry=False,
+                              chain=chain) for part in parts]
 
     def run(g_np: dict):
-        f, outs, _ = step(carry_from_numpy(g_np, blocks.device), blocks)
-        stats = lane_fingerprint(outs)
-        if last_symbol:
-            stats += last_valid_symbol(outs)
-        return (carry_to_numpy(f), outs,
-                tuple(t.cpu().numpy() for t in stats))
+        done = []
+        for part, step, rows in zip(parts, steps, shards.rows):
+            f, outs, _ = step(carry_from_numpy(
+                {k: g_np[k][rows] for k in CARRY_FIELDS}, part.device), part)
+            stats = lane_fingerprint(outs)
+            if last_symbol:
+                stats += last_valid_symbol(outs)
+            done.append((f, outs, stats))
+        f_np = shards.carry_to_numpy([d[0] for d in done])
+        host = shards.to_host([list(d[2]) for d in done])
+        stats = tuple(np.concatenate([h[j] for h in host])
+                      for j in range(len(host[0])))
+        outs = [d[1] for d in done]
+        return f_np, (outs if len(outs) > 1 else outs[0]), stats
 
     return run
 
 
-def run_warmup(cfg, blocks: torch.Tensor, xf, kb_w: int, tails_np,
-               init_np: dict | None = None) -> dict:
+def _lanes_to_host(outs, shards: Shards, P: int):
+    """The first P lanes of a pass's outputs (one BlockOutput, or the list
+    of the shards') as numpy in lane order: sym_re, sym_im, and valid and
+    locked_once as int8. One shard's arrays are the pinned buffers
+    themselves (utils.to_host copy=False), for a caller that assembles them
+    at once."""
+    parts = outs if isinstance(outs, list) else [outs]
+    want = []
+    for o, rows in zip(parts, shards.rows):
+        n = max(0, min(P, rows.stop) - rows.start)
+        want.append([o.sym_re[:n], o.sym_im[:n], o.valid[:n].to(torch.int8),
+                     o.locked_once[:n].to(torch.int8)])
+    host = shards.to_host(want, copy=len(parts) > 1)
+    return [host[0][j] if len(host) == 1 else
+            np.concatenate([h[j] for h in host]) for j in range(4)]
+
+
+def _output_fingerprint(outs, rows: int, shards: Shards) -> tuple:
+    """output_fingerprint of a pass's whole output (one BlockOutput, or the
+    list of the shards'), as two ints."""
+    parts = outs if isinstance(outs, list) else [outs]
+    lanes = shards.per * len(shards)
+    host = shards.to_host([list(output_fingerprint(
+        o, rows, lane0=r.start, lanes=lanes))
+        for o, r in zip(parts, shards.rows)])
+    cs = sum(int(h[1]) for h in host)
+    return (sum(int(h[0]) for h in host),
+            (cs + 2 ** 31) % 2 ** 32 - 2 ** 31)
+
+
+def run_warmup(cfg, blocks, xf, kb_w: int, tails_np,
+               init_np: dict | None = None,
+               shards: Shards | None = None) -> dict:
     """The warmup pass and its gauge anchor w (finish_warmup_carry): every
     lane demodulates from cold the kb_w blocks before its chunk.
     build_warmup's segments are cut on the device from `blocks`, the
-    recording already there as (C, kb*L, 2); its FIR tails come from the
-    host's copy xf."""
-    chunks, chunk_len = blocks.shape[:2]
+    recording already there as (C, kb*L, 2) (or, with `shards`, each
+    shard's lanes; a shard's first lane takes the blocks before it from the
+    host's copy xf); the FIR tails come from xf."""
+    parts, shards = _one_device(blocks, shards)
+    chunks, chunk_len = shards.per * len(shards), parts[0].shape[1]
     V = kb_w * cfg.block_len
-    wseg = torch.cat([blocks[:1, :V], blocks[:-1, chunk_len - V:]])
+    wsegs = []
+    for part, rows in zip(parts, shards.rows):
+        at = rows.start * chunk_len
+        head = (part[:1, :V] if at == 0 else
+                to_device(xf[at - V:at][None], part.device))
+        wsegs.append(torch.cat([head, part[:-1, chunk_len - V:]]))
     w0_np = batch_carry_np(cfg, chunks)
     w0_np["fir_tail"] = warmup_tails(xf, chunks, chunk_len, V, cfg.taps)
-    wf_np, _, _ = make_pass_runner(cfg, wseg)(w0_np)
+    wf_np, _, _ = make_pass_runner(cfg, wsegs, shards=shards)(w0_np)
     return finish_warmup_carry(cfg, wf_np, tails_np, init_np)
 
 
@@ -708,7 +779,7 @@ def _sequential_from(cfg, device, leaves: dict | None, x: np.ndarray):
 
 
 def demod_array_turbo(cfg: DemodConfig, x: np.ndarray, chunks: int = 32,
-                      max_passes: int = 4, device=None,
+                      max_passes: int = 4, device=None, mesh=None,
                       converge: str = "auto",
                       warmup_blocks: int | None = None,
                       strict: bool = False) -> TurboResult:
@@ -721,6 +792,11 @@ def demod_array_turbo(cfg: DemodConfig, x: np.ndarray, chunks: int = 32,
       max_passes: fixpoint iteration cap; worst-case cost is
         max_passes * (N / chunks) block-demod work.
       device: where the passes run (None: the card, utils.select_device).
+      mesh: None for one device; a device list (utils.make_mesh) shards
+        the lanes over it, chunks divisible by its length; "auto" shards
+        over every visible card when there are several and they divide
+        chunks, else runs on one. Giving device and mesh raises. The
+        result is bitwise the one-device result.
       converge: stopping criterion. "auto" picks "gauge".
         "gauge" (the default): warmup acquisition per lane, one-shot gauge
         resolution, then iterate until two consecutive passes emit the
@@ -758,7 +834,15 @@ def demod_array_turbo(cfg: DemodConfig, x: np.ndarray, chunks: int = 32,
         converge = "gauge"
     if converge not in ("bitwise", "symbols", "gauge"):
         raise ValueError(f"converge {converge!r}")
-    device = select_device(device)
+    if device is not None and mesh is not None:
+        raise ValueError("give device= or mesh=, not both")
+    if isinstance(mesh, str) and mesh == "auto":
+        mesh = make_mesh()
+        if len(mesh) < 2 or chunks % len(mesh) != 0:
+            mesh = None
+    devices = make_mesh(mesh) if mesh is not None else [select_device(device)]
+    shards = Shards(devices, chunks, "chunks")
+    device = devices[0]
     xf = _as_f32_pairs(x)
     N = len(xf)
     L = cfg.block_len
@@ -780,7 +864,9 @@ def demod_array_turbo(cfg: DemodConfig, x: np.ndarray, chunks: int = 32,
     turbo_n = chunks * chunk_len
     xt = xf[:turbo_n]
     # Lane c, block k = xt[c*chunk_len + k*L : ... + L]: a view, no copy.
-    blocks = to_device(xt, device).view(chunks, chunk_len, 2)
+    blocks = [to_device(xt[rows.start * chunk_len:rows.stop * chunk_len],
+                        dev).view(shards.per, chunk_len, 2)
+              for dev, rows in zip(devices, shards.rows)]
     tails = boundary_tails(xt, chunks, chunk_len, taps)
     rows = cfg.steps_per_block + (1 if cfg.oqpsk else 0)
 
@@ -790,12 +876,13 @@ def demod_array_turbo(cfg: DemodConfig, x: np.ndarray, chunks: int = 32,
 
     if converge == "gauge":
         kb_w = min(warmup_blocks or default_warmup_blocks(L, kb), kb)
-        w_np = run_warmup(cfg, blocks, xt, kb_w, tails)
+        w_np = run_warmup(cfg, blocks, xt, kb_w, tails, shards=shards)
         (f_np, outs, K, passes, converged, max_residual, lane_ok,
-         _) = gauge_fixpoint(cfg, make_pass_runner(cfg, blocks), w_np, tails,
-                             max_passes)
+         _) = gauge_fixpoint(cfg, make_pass_runner(cfg, blocks,
+                                                   shards=shards),
+                             w_np, tails, max_passes)
     else:
-        run = make_pass_runner(cfg, blocks)
+        run = make_pass_runner(cfg, blocks, shards=shards)
         g_np = batch_carry_np(cfg, chunks)
         g_np["fir_tail"] = tails
         converged = False
@@ -824,7 +911,7 @@ def demod_array_turbo(cfg: DemodConfig, x: np.ndarray, chunks: int = 32,
                 converged = True      # bitwise fixpoint implies both modes
                 break
             if converge == "symbols":
-                fp = tuple(int(v) for v in output_fingerprint(outs, rows))
+                fp = _output_fingerprint(outs, rows, shards)
                 if fp == prev_fp:
                     converged = True
                     break
@@ -854,9 +941,7 @@ def demod_array_turbo(cfg: DemodConfig, x: np.ndarray, chunks: int = 32,
 
     # Assemble symbols in stream order from the final pass; in gauge mode
     # rotate each lane's symbols into chunk 0's gauge (exact sign/swap).
-    sym_re, sym_im, valid, lonce = to_host(
-        [outs.sym_re[:P], outs.sym_im[:P], outs.valid[:P].to(torch.int8),
-         outs.locked_once[:P].to(torch.int8)], copy=False)   # assembled now
+    sym_re, sym_im, valid, lonce = _lanes_to_host(outs, shards, P)
     lonce = lonce.astype(np.int32)
     del outs, blocks
     tail_start = P * chunk_len           # == turbo_n when P == chunks

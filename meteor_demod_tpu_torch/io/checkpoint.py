@@ -6,7 +6,8 @@ phase/freq/err/locked, timing phase/freq/prev, AGC gain/bias, OQPSK
 inphase/slot) is a complete, exact checkpoint: demodulation resumed from a
 saved carry is sample-for-sample identical to an uninterrupted run. This
 module serializes that carry, plus the host-side state around it, to a single
-.npz file, for a StreamDemodulator, a FleetDemodulator and a ServingFleet.
+.npz file, for a StreamDemodulator, a FleetDemodulator, a ServingFleet and
+one process's part of a MultiHostFleet.
 
 The layout is the JAX package's (format version 1), so a file it wrote loads
 here as long as it holds no parked stream: its parking, program-switch and
@@ -126,9 +127,11 @@ def save_fleet_checkpoint(path: str, fleet) -> None:
     _savez(path, meta=_meta_array(meta), **arrays)
 
 
-def load_fleet_checkpoint(path: str, device=None):
-    """Reconstruct a FleetDemodulator exactly as saved, on `device` (None:
-    the card)."""
+def load_fleet_checkpoint(path: str, device=None, mesh=None):
+    """Reconstruct a FleetDemodulator exactly as saved, on `device` or over
+    `mesh` (FleetDemodulator's meaning: with neither, every visible card).
+    The file holds its rows in stream order, so any device list whose
+    length divides the stream count loads it, whatever list saved it."""
     from ..parallel.mesh import FleetDemodulator
     with np.load(path) as z:
         meta = _read_meta(z)
@@ -136,7 +139,7 @@ def load_fleet_checkpoint(path: str, device=None):
             raise ValueError("not a fleet checkpoint")
         fm = meta["fleet"]
         fleet = FleetDemodulator(_cfg_from_meta(fm["cfg"]), fm["n_streams"],
-                                 device, **_fleet_ctor_kw(fm))
+                                 device, mesh=mesh, **_fleet_ctor_kw(fm))
         fleet.restore_state(fm, z)
     return fleet
 
@@ -161,10 +164,10 @@ def save_serving_checkpoint(path: str, serving) -> None:
     _savez(path, meta=_meta_array(meta), **arrays)
 
 
-def load_serving_checkpoint(path: str, device=None):
-    """Reconstruct a ServingFleet exactly as saved, on `device` (None: the
-    card). Group state is restored into the constructor-built
-    FleetDemodulators."""
+def load_serving_checkpoint(path: str, device=None, mesh=None):
+    """Reconstruct a ServingFleet exactly as saved, on `device` or over
+    `mesh` (ServingFleet's meaning), whatever device list saved it. Group
+    state is restored into the constructor-built FleetDemodulators."""
     from ..parallel.serving import ServingFleet
     with np.load(path) as z:
         meta = _read_meta(z)
@@ -180,9 +183,39 @@ def load_serving_checkpoint(path: str, device=None):
         serving = ServingFleet(_cfg_from_meta(meta["cfg"]),
                                meta["n_streams"],
                                group_size=meta["group_size"], device=device,
-                               **fleet_kw)
+                               mesh=mesh, **fleet_kw)
         for g, gm in enumerate(meta["groups"]):
             serving.groups[g].restore_state(gm, z, prefix=f"g{g}_")
         serving._group_of = np.asarray(z["group_of"]).copy()
         serving._lane_of = np.asarray(z["lane_of"]).copy()
     return serving
+
+
+def save_multihost_checkpoint(path: str, fleet) -> None:
+    """Serialize THIS PROCESS's part of a MultiHostFleet (its local rows and
+    the fleet-global telemetry). In a job of several processes every
+    process calls this with its own path (e.g. suffixed with its rank)."""
+    meta, arrays = fleet.state_dict()
+    meta = dict(version=_FORMAT_VERSION, kind="multihost", fleet=meta)
+    _savez(path, meta=_meta_array(meta), **arrays)
+
+
+def load_multihost_checkpoint(path: str, mesh=None):
+    """Reconstruct this process's MultiHostFleet from its own file, over its
+    device list `mesh` (None: every visible card); the job must have the
+    save-time topology, else ValueError."""
+    from ..parallel.multihost import MultiHostFleet
+    with np.load(path) as z:
+        meta = _read_meta(z)
+        if (meta["version"] != _FORMAT_VERSION
+                or meta.get("kind") != "multihost"):
+            raise ValueError("not a multihost checkpoint")
+        fm = meta["fleet"]
+        backend = fm.get("backend", "auto")
+        fleet = MultiHostFleet(
+            _cfg_from_meta(fm["cfg"]), fm["streams_per_device"],
+            backend=backend if backend in BACKENDS else "auto",
+            recover_flagged=fm["recover_flagged"],
+            telemetry_every=fm["telemetry_every"], mesh=mesh)
+        fleet.restore_state(fm, z)
+    return fleet

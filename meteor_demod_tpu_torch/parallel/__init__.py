@@ -1,2 +1,4 @@
-"""Fleet scale-out on one GPU: FleetDemodulator (mesh.py), ServingFleet
-(serving.py) and the row packing their checkpoints share (serialize.py)."""
+"""Fleet scale-out: FleetDemodulator on one device or over a device list
+(mesh.py), ServingFleet (serving.py), the row packing their checkpoints
+share (serialize.py), one stream's FIR split along time (timeshard.py) and
+one fleet over several processes (multihost.py)."""

@@ -1,17 +1,28 @@
-"""Fleet demodulation on one GPU: many independent streams per dispatch.
+"""Fleet demodulation: many independent streams per dispatch, on one device
+or over a list of them.
 
 The reference is a single-process, single-stream program; a station fleet
 runs N of them. Here the N streams are the batch axis of one block
-demodulator (demod/backend.py) on one card: each stream's carry and sample
-blocks get a leading `streams` axis, and a dispatch runs `chain_blocks`
-consecutive blocks between one upload and one readback. Streams never
-exchange data; the only reductions are the five fleet telemetry sums, read
-back on telemetry ticks as the reference's UI thread polls its DSP getters
+demodulator (demod/backend.py): each stream's carry and sample blocks get a
+leading `streams` axis, and a dispatch runs `chain_blocks` consecutive
+blocks between one upload and one readback. Streams never exchange data;
+the only reductions are the five fleet telemetry values, read back on
+telemetry ticks as the reference's UI thread polls its DSP getters
 (main.c:231-237) without touching the hot path.
 
-This is the JAX package's parallel/mesh.py without its device mesh (one card;
-sharding over several is a later slice) and without three TPU-era policies
-that the port leaves out on purpose:
+Several devices (`mesh=`, a device list as utils.make_mesh gives it; the JAX
+package's shard_map over its `streams` axis): the stream rows split into
+equal contiguous shards, one per list entry, each with its own step and
+carry on its device (Shards). Every shard's upload and step is queued
+before any readback, so several cards work at once; shards that share a
+card run in turn on its current stream. A shard's program and shapes do not
+depend on the shard count, so every stream's output is bitwise its
+one-device output. The telemetry combines on the host as psum / pmean
+would: the four counts add and mean_agc_gain is the mean of the shard
+means. No collective runs inside one process; parallel/multihost.py adds
+the one across processes.
+
+Left out of the JAX package's mesh.py on purpose, three TPU-era policies:
 
 - straggler parking (a host side-path for never-locking streams, its worker
   thread and deferred output): it existed so that the wide<->locked program
@@ -42,7 +53,7 @@ from ..demod.state import (CARRY_FIELDS, BlockOutput, DemodCarry,
                            PackedOutput, batch_carry, carry_from_numpy,
                            carry_to_numpy)
 from ..dsp.fir import f32_to_iq, iq_to_f32
-from ..utils import select_device, to_device, to_host
+from ..utils import mesh_devices, select_device, to_device, to_host
 
 INGESTS = {"f32": np.float32, "i16": np.int16, "u8": np.uint8}
 
@@ -115,25 +126,95 @@ def make_fleet_demod(cfg: DemodConfig, n_streams: int, device=None,
     return step
 
 
+# The fleet telemetry, in the order the step returns it.
+TELEMETRY = ("locked_streams", "locked_once_streams", "symbols",
+             "mean_agc_gain", "flags")
+
+
 def _telemetry_values(tel: dict) -> dict:
     """Telemetry in its host form: np.float32 mean_agc_gain, np.int32 sums."""
     return {k: (np.float32(v) if k == "mean_agc_gain" else np.int32(v))
             for k, v in tel.items()}
 
 
+def combine_telemetry(parts: list) -> dict:
+    """Telemetry of equal shards (host values) -> the whole fleet's, as the
+    JAX step's psum / pmean: the four counts add and mean_agc_gain is the
+    float32 mean of the shard means."""
+    out = {k: sum(int(p[k]) for p in parts) for k in TELEMETRY
+           if k != "mean_agc_gain"}
+    out["mean_agc_gain"] = np.mean(
+        np.array([p["mean_agc_gain"] for p in parts], dtype=np.float32))
+    return _telemetry_values({k: out[k] for k in TELEMETRY})
+
+
+def _cat(parts: list) -> np.ndarray:
+    """Shards' rows in order; one shard's array is returned as it is."""
+    return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+
+class Shards:
+    """Equal contiguous row shards of a batch of n_rows, one per entry of
+    `devices` (repeats allowed): shard i holds rows[i] on devices[i].
+
+    A shard's work goes to its card's current stream: with every shard's
+    work queued before one readback, shards on several cards overlap and
+    shards that share a card run in turn. (A CUDA stream per shard on one
+    card gave wrong outputs from the second dispatch on: ROADMAP.md list
+    C.)"""
+
+    def __init__(self, devices, n_rows: int, what: str = "n_streams"):
+        self.devices = list(devices)
+        n = len(self.devices)
+        if n_rows % n != 0:
+            raise ValueError(
+                f"{what} {n_rows} must be divisible by mesh size {n}")
+        self.per = n_rows // n
+        self.rows = [slice(i * self.per, (i + 1) * self.per)
+                     for i in range(n)]
+
+    def __len__(self) -> int:
+        return len(self.devices)
+
+    def carry_from_numpy(self, leaves: dict) -> list:
+        """Global numpy carry leaves -> one DemodCarry per shard."""
+        return [carry_from_numpy(
+            {k: np.asarray(leaves[k])[r] for k in CARRY_FIELDS}, dev)
+            for dev, r in zip(self.devices, self.rows)]
+
+    @staticmethod
+    def to_host(per_shard: list, copy: bool = True) -> list:
+        """[shard i's tensors] -> [shard i's numpy arrays], in one
+        utils.to_host call: one wait for each card."""
+        flat = to_host([t for tensors in per_shard for t in tensors], copy)
+        at = np.cumsum([0] + [len(tensors) for tensors in per_shard])
+        return [flat[a:b] for a, b in zip(at[:-1], at[1:])]
+
+    def carry_to_numpy(self, carries: list) -> dict:
+        """One DemodCarry per shard -> the global numpy carry leaves."""
+        host = self.to_host([[getattr(c, k) for k in CARRY_FIELDS]
+                             for c in carries])
+        return {k: _cat([h[j] for h in host])
+                for j, k in enumerate(CARRY_FIELDS)}
+
+
 class FleetDemodulator:
-    """Demodulate a fleet of independent IQ streams on one device.
+    """Demodulate a fleet of independent IQ streams on one device or over a
+    list of them.
 
     The equivalent of running n_streams reference processes: feed aligned
     (n_streams, chain_blocks*block_len) blocks, collect per-stream symbols
-    and fleet telemetry. device=None is the CUDA card (utils.select_device).
+    and fleet telemetry. device= runs on one device; mesh= (a device list,
+    or "auto") shards the streams over it, n_streams divisible by its
+    length; giving both raises. With neither, every visible card
+    (utils.make_mesh()): one card is the one-device fleet.
     """
 
     def __init__(self, cfg: DemodConfig, n_streams: int, device=None,
                  backend: str = "auto", recover_flagged: bool = True,
                  telemetry_every: int = 1, sweep_rescue_s: float = 0.0,
                  chain_blocks: int = 1, ingest: str = "f32",
-                 packed_output: bool = False):
+                 packed_output: bool = False, mesh=None):
         cfg.validate()
         if n_streams < 1:
             raise ValueError("n_streams must be >= 1")
@@ -145,7 +226,9 @@ class FleetDemodulator:
             raise ValueError(f"unsupported ingest {ingest!r}")
         self.cfg = cfg
         self.n_streams = n_streams
-        self.device = select_device(device)
+        self.mesh = mesh_devices(device, mesh)
+        self._shards = Shards(self.mesh, n_streams)
+        self.device = self.mesh[0]
         self._backend = backend
         # Raw integer ingest and device-side output quantization: see
         # make_fleet_demod. The oracle recovery decodes and quantizes on the
@@ -159,16 +242,17 @@ class FleetDemodulator:
         # set_sweep_rescue.
         self.set_sweep_rescue(sweep_rescue_s)
         self._rescue_streak = np.zeros(n_streams, np.int64)
-        # Telemetry amortization: the fleet sums are computed and read back
-        # every telemetry_every-th dispatch, as the reference polls its
+        # Telemetry amortization: the fleet values are computed and read
+        # back every telemetry_every-th dispatch, as the reference polls its
         # getters at the UI refresh interval and not per buffer. In between,
         # self.telemetry holds the last tick's values; per-stream outputs
         # and safety flags are read every dispatch regardless.
         self.telemetry_every = telemetry_every
         self._block_idx = 0
         self._fns = {}
-        self._get_fn(telemetry=True)         # checks backend and device now
-        self.carry = batch_carry(cfg, n_streams, self.device)
+        self._get_fns(telemetry=True)        # checks backend and device now
+        self._carries = [batch_carry(cfg, self._shards.per, dev)
+                         for dev in self.mesh]
         self.telemetry = None
         self.stream_flags = None
         # When True (default), a stream whose dispatch trips a safety flag is
@@ -177,6 +261,24 @@ class FleetDemodulator:
         # fleet then has StreamDemodulator's always-exact contract.
         self.recover_flagged = recover_flagged
         self.recovered_streams = 0
+
+    @property
+    def carry(self) -> DemodCarry:
+        """Every stream's carry in order: with one shard the carry itself,
+        with several a copy gathered onto the first device. Assigning a
+        carry splits it into the shards."""
+        if len(self._shards) == 1:
+            return self._carries[0]
+        return carry_from_numpy(self._shards.carry_to_numpy(self._carries),
+                                self.device)
+
+    @carry.setter
+    def carry(self, carry: DemodCarry) -> None:
+        if len(self._shards) == 1:
+            self._carries = [carry]
+        else:
+            self._carries = self._shards.carry_from_numpy(
+                carry_to_numpy(carry))
 
     def set_sweep_rescue(self, seconds: float) -> None:
         """(Re)configure the sweep rescue: `seconds` of unlocked signal
@@ -196,20 +298,21 @@ class FleetDemodulator:
             2.0 * float(cfg.pll_fmax) / SWEEP_STEP
             * cfg.samplerate / cfg.symrate / cfg.block_len) + 1
 
-    def _get_fn(self, telemetry: bool) -> Callable:
+    def _get_fns(self, telemetry: bool) -> list:
+        """Each shard's step; shards on one device share theirs."""
         if telemetry not in self._fns:
-            self._fns[telemetry] = make_fleet_demod(
-                self.cfg, self.n_streams, self.device, self._backend,
-                telemetry=telemetry, chain=self.chain_blocks,
-                ingest=self.ingest, packed=self.packed_output)
+            steps = {}
+            for dev in self.mesh:
+                if dev not in steps:
+                    steps[dev] = make_fleet_demod(
+                        self.cfg, self._shards.per, dev, self._backend,
+                        telemetry=telemetry, chain=self.chain_blocks,
+                        ingest=self.ingest, packed=self.packed_output)
+            self._fns[telemetry] = [steps[dev] for dev in self.mesh]
         return self._fns[telemetry]
 
-    def process_blocks(self, blocks: np.ndarray):
-        """blocks: (n_streams, chain_blocks*block_len) complex64 or
-        (..., 2) float32 for ingest "f32", (..., 2) int16 / uint8 raw sample
-        pairs for "i16" / "u8" -> per-stream BlockOutput (PackedOutput with
-        packed_output) of numpy arrays; with chain_blocks=K the rows are the
-        K blocks' step-concatenation."""
+    def _feed(self, blocks: np.ndarray) -> np.ndarray:
+        """The caller's blocks as the ingest's sample pairs, shape checked."""
         feed_dtype = INGESTS[self.ingest]
         if self.ingest == "f32":
             if np.iscomplexobj(blocks):
@@ -221,23 +324,20 @@ class FleetDemodulator:
         want = (self.n_streams, self.chain_blocks * self.cfg.block_len, 2)
         if blocks.shape != want:
             raise ValueError(f"expected {want}, got {blocks.shape}")
-        blocks = np.asarray(blocks, dtype=feed_dtype)
-        # The pre-dispatch carry stays on the device (the step returns new
-        # tensors); it is fetched only if a stream flags.
-        prev_carry = self.carry
-        x = to_device(blocks, self.device)
-        tel_tick = (self._block_idx % self.telemetry_every) == 0
-        self._block_idx += 1
-        self.carry, outs, tel = self._get_fn(tel_tick)(self.carry, x)
-        outs = type(outs)(*to_host(dataclasses.astuple(outs)))
-        self.stream_flags = np.array(self.carry.flags.cpu().numpy())
-        locked_vec = None
-        if tel_tick:
-            self.telemetry = _telemetry_values(
-                {k: v.item() for k, v in tel.items()})
-            locked_vec = np.array(self.carry.locked.cpu().numpy())
+        # Not made contiguous: a column slice of a longer capture goes
+        # straight into the pinned staging (utils.to_device), one copy.
+        return np.asarray(blocks, dtype=feed_dtype)
+
+    def process_blocks(self, blocks: np.ndarray):
+        """blocks: (n_streams, chain_blocks*block_len) complex64 or
+        (..., 2) float32 for ingest "f32", (..., 2) int16 / uint8 raw sample
+        pairs for "i16" / "u8" -> per-stream BlockOutput (PackedOutput with
+        packed_output) of numpy arrays; with chain_blocks=K the rows are the
+        K blocks' step-concatenation."""
+        blocks = self._feed(blocks)
+        prev, outs, tel_tick, locked_vec = self._dispatch(blocks)
         if self.recover_flagged and np.any(self.stream_flags):
-            outs = self._recover(prev_carry, blocks, outs,
+            outs = self._recover(prev, blocks, outs,
                                  update_telemetry=tel_tick,
                                  locked_vec=locked_vec)
         if tel_tick and self._rescue_blocks:
@@ -246,21 +346,58 @@ class FleetDemodulator:
             self._maybe_rescue()
         return outs
 
+    def _dispatch(self, blocks: np.ndarray):
+        """One step of every shard on checked blocks: every shard's upload
+        and step are queued before any readback. Sets stream_flags, and the
+        telemetry on a telemetry tick. Returns (the pre-dispatch carries,
+        which stay on their devices and are fetched only if a stream flags;
+        the outputs as numpy in stream order; whether this was a tick; the
+        locked vector on a tick, else None)."""
+        sh = self._shards
+        prev = list(self._carries)
+        tel_tick = (self._block_idx % self.telemetry_every) == 0
+        self._block_idx += 1
+        fns = self._get_fns(tel_tick)
+        stepped = []
+        for i, rows in enumerate(sh.rows):
+            x = to_device(blocks[rows], sh.devices[i])
+            self._carries[i], outs, tel = fns[i](self._carries[i], x)
+            want = list(dataclasses.astuple(outs)) + [self._carries[i].flags]
+            if tel_tick:
+                want += [self._carries[i].locked] + [tel[k] for k in TELEMETRY]
+            stepped.append(want)
+        host = sh.to_host(stepped)
+        col = lambda j: _cat([h[j] for h in host])
+        n_out = len(dataclasses.astuple(outs))
+        outs = type(outs)(*(col(j) for j in range(n_out)))
+        self.stream_flags = np.array(col(n_out))
+        if not tel_tick:
+            return prev, outs, False, None
+        self.telemetry = combine_telemetry(
+            [dict(zip(TELEMETRY, h[n_out + 2:])) for h in host])
+        return prev, outs, True, np.array(col(n_out + 1))
+
     def _maybe_rescue(self) -> None:
         """Kick long-unlocked streams onto the downward escape sweep (see
         set_sweep_rescue): their lanes of p_freq and updown are rewritten on
-        the device."""
+        their shards' devices."""
         blocks_per_tick = self.telemetry_every * self.chain_blocks
         kick_ticks = -(-self._rescue_blocks // blocks_per_tick)
         lanes = np.nonzero(self._rescue_streak >= kick_ticks)[0]
         if not len(lanes):
             return
-        idx = torch.as_tensor(lanes, device=self.device)
-        p_freq, updown = self.carry.p_freq.clone(), self.carry.updown.clone()
-        p_freq[idx] = float(self.cfg.pll_fmax)
-        updown[idx] = -1.0
-        self.carry = dataclasses.replace(self.carry, p_freq=p_freq,
-                                         updown=updown)
+        sh = self._shards
+        for i, rows in enumerate(sh.rows):
+            local = lanes[(lanes >= rows.start) & (lanes < rows.stop)]
+            if not len(local):
+                continue
+            c = self._carries[i]
+            idx = torch.as_tensor(local - rows.start, device=sh.devices[i])
+            p_freq, updown = c.p_freq.clone(), c.updown.clone()
+            p_freq[idx] = float(self.cfg.pll_fmax)
+            updown[idx] = -1.0
+            self._carries[i] = dataclasses.replace(c, p_freq=p_freq,
+                                                   updown=updown)
         self._rescue_streak[lanes] = -(self._rescue_transit_blocks
                                        // blocks_per_tick)
 
@@ -272,18 +409,21 @@ class FleetDemodulator:
             return rows.astype(np.float32) - np.float32(128.0)
         return rows
 
-    def _recover(self, prev_carry: DemodCarry, blocks: np.ndarray, outs,
+    def _recover(self, prev: list, blocks: np.ndarray, outs,
                  update_telemetry: bool = True, locked_vec=None):
         """Re-demodulate every flagged stream's whole dispatch span with the
-        exact scalar oracle from the pre-dispatch carry, block by block
-        (pipeline.oracle_replay), splice the corrected symbols into `outs`
-        (left-justified in the step slots: chronological order, which is all
-        consumers rely on), and write the corrected carry back to the
-        device. Flags are cleared: a nonzero stream_flags entry always
-        refers to the dispatch just processed."""
+        exact scalar oracle from the pre-dispatch carries `prev` (one a
+        shard), block by block (pipeline.oracle_replay), splice the
+        corrected symbols into `outs` (left-justified in the step slots:
+        chronological order, which is all consumers rely on), and write the
+        corrected carry back to the shards that hold a flagged stream; the
+        other shards are left alone. Flags are cleared: a nonzero
+        stream_flags entry always refers to the dispatch just processed."""
+        sh = self._shards
         flagged = np.nonzero(self.stream_flags)[0]
-        prev_np = carry_to_numpy(prev_carry)
-        cur = {k: np.array(v) for k, v in carry_to_numpy(self.carry).items()}
+        prev_np = sh.carry_to_numpy(prev)
+        cur = {k: np.array(v)
+               for k, v in sh.carry_to_numpy(self._carries).items()}
         outs = type(outs)(*(np.array(v) for v in dataclasses.astuple(outs)))
         a, b = (("sym_i", "sym_q") if self.packed_output
                 else ("sym_re", "sym_im"))
@@ -314,18 +454,26 @@ class FleetDemodulator:
         self.recovered_streams += len(flagged)
         if locked_vec is not None:
             locked_vec[flagged] = cur["locked"][flagged]
-        self.carry = carry_from_numpy(cur, self.device)
+        for j in sorted({int(i) // sh.per for i in flagged}):
+            self._carries[j] = carry_from_numpy(
+                {k: v[sh.rows[j]] for k, v in cur.items()}, sh.devices[j])
         if update_telemetry:
             # Re-derive the fleet telemetry from the corrected host state
-            # (the device sums were taken before the splice). Between ticks
-            # self.telemetry keeps the last tick's values.
-            self.telemetry = _telemetry_values({
-                "locked_streams": cur["locked"].sum(),
-                "locked_once_streams": cur["locked_once"].sum(),
-                "symbols": outs.valid.sum(),
-                "mean_agc_gain": cur["agc_gain"].mean(),
-                "flags": 0})
+            # (the device values were taken before the splice). Between
+            # ticks self.telemetry keeps the last tick's values.
+            self.telemetry = self.telemetry_of(cur, outs.valid)
         return outs
+
+    def telemetry_of(self, leaves: dict, valid: np.ndarray) -> dict:
+        """The fleet telemetry of host carry leaves and a valid array (both
+        in stream order), combined over the shards as the step's is; flags
+        0, as after a recovery."""
+        return combine_telemetry([dict(
+            locked_streams=leaves["locked"][r].sum(),
+            locked_once_streams=leaves["locked_once"][r].sum(),
+            symbols=valid[r].sum(),
+            mean_agc_gain=leaves["agc_gain"][r].mean(),
+            flags=0) for r in self._shards.rows])
 
     def flagged_streams(self) -> np.ndarray:
         """Indices of streams that tripped a safety flag in the last
@@ -342,14 +490,16 @@ class FleetDemodulator:
     #
     # The serialization mirror lives here, next to the state it mirrors: a
     # new fleet state field is added to __init__ and to state_dict /
-    # restore_state in the same edit.
+    # restore_state in the same edit. Rows are in stream order whatever the
+    # shard count, so a capture taken on one device list restores on any
+    # other that divides n_streams.
 
     def state_dict(self) -> tuple[dict, dict]:
         """(json-able meta, numpy arrays) capturing this fleet exactly, in
         the JAX package's fleet layout less its parked, retired and banded
         fields. Does not change the fleet."""
-        arrays = {f"carry_{k}": v
-                  for k, v in carry_to_numpy(self.carry).items()}
+        arrays = {f"carry_{k}": v for k, v in
+                  self._shards.carry_to_numpy(self._carries).items()}
         arrays["rescue_streak"] = self._rescue_streak.copy()
         if self.stream_flags is not None:
             arrays["stream_flags"] = np.array(self.stream_flags)
@@ -396,12 +546,12 @@ class FleetDemodulator:
             self.packed_output = new_packed
             self._fns = {}
         self.set_sweep_rescue(float(meta.get("sweep_rescue_s", 0.0)))
-        self.carry = carry_from_numpy(
-            {k: z[f"{p}carry_{k}"] for k in CARRY_FIELDS}, self.device)
-        if self.carry.t_phase.shape != (self.n_streams,):
+        leaves = {k: np.asarray(z[f"{p}carry_{k}"]) for k in CARRY_FIELDS}
+        if leaves["t_phase"].shape != (self.n_streams,):
             raise ValueError(
-                f"checkpoint carry has {tuple(self.carry.t_phase.shape)} "
+                f"checkpoint carry has {leaves['t_phase'].shape} "
                 f"streams, the fleet {self.n_streams}")
+        self._carries = self._shards.carry_from_numpy(leaves)
         if f"{p}rescue_streak" in z.files:
             self._rescue_streak = np.asarray(z[f"{p}rescue_streak"]).copy()
         if f"{p}stream_flags" in z.files:

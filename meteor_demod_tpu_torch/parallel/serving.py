@@ -20,16 +20,18 @@ import dataclasses
 import numpy as np
 
 from ..config import DemodConfig
-from ..utils import select_device
+from ..utils import mesh_devices
 from .mesh import FleetDemodulator
 
 
 class ServingFleet:
-    """n_streams = n_groups x group_size, each group a FleetDemodulator on
-    `device` (None: the card; utils.select_device) built with `fleet_kw`."""
+    """n_streams = n_groups x group_size, each group a FleetDemodulator built
+    with `fleet_kw` on `device`, or sharded over `mesh` (a device list, or
+    "auto"; group_size divisible by its length); with neither, over every
+    visible card (utils.make_mesh())."""
 
     def __init__(self, cfg: DemodConfig, n_streams: int,
-                 group_size: int = 128, device=None, **fleet_kw):
+                 group_size: int = 128, device=None, mesh=None, **fleet_kw):
         cfg.validate()
         if n_streams % group_size != 0:
             raise ValueError(
@@ -38,8 +40,9 @@ class ServingFleet:
         self.group_size = group_size
         self.n_streams = n_streams
         self.n_groups = n_streams // group_size
-        self.device = select_device(device)
-        self.groups = [FleetDemodulator(cfg, group_size, self.device,
+        self.mesh = mesh_devices(device, mesh)
+        self.device = self.mesh[0]
+        self.groups = [FleetDemodulator(cfg, group_size, mesh=self.mesh,
                                         **fleet_kw)
                        for _ in range(self.n_groups)]
         # assign[stream] = (group, lane), kept as flat arrays.

@@ -1,4 +1,4 @@
-"""Production serving host: many LRPT streams on one card, restartable.
+"""Production serving host: many LRPT streams on the cards, restartable.
 
     python -m meteor_demod_tpu_torch.serve_fleet --synth 256 --dead 2 \\
         --seconds 10 --out-dir out --checkpoint fleet.ckpt.npz
@@ -28,8 +28,10 @@ the partial chain would lose up to chain*block_len - 1 real samples, and the
 CLI's exact tail (the scalar oracle over the real samples only) costs
 seconds of host time per stream.
 
-The device is the CUDA card; METEOR_DEMOD_PLATFORM=cpu runs on the CPU
-(plain recurrence, seconds per block: keep such runs small):
+The devices are every visible CUDA card (utils.make_mesh), each group's
+streams sharded over them, so --group-size must be a multiple of the card
+count; METEOR_DEMOD_PLATFORM=cpu runs on the CPU (plain recurrence, seconds
+per block: keep such runs small):
     METEOR_DEMOD_PLATFORM=cpu python -m meteor_demod_tpu_torch.serve_fleet \\
         --synth 8 --dead 1 --seconds 1 --group-size 8 --chain 2 \\
         --block-len 2048 --out-dir /tmp/fleet_out --checkpoint /tmp/fl.npz
@@ -52,7 +54,7 @@ from .io.wav import decode_iq, open_input
 from .io.writer import SymbolWriter
 from .parallel.serving import ServingFleet
 from .sim import synth_psk
-from .utils import select_device
+from .utils import make_mesh
 
 
 class _FileSource:
@@ -220,12 +222,12 @@ def _parse_args(argv) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def _resume(args, cfg: DemodConfig, n_streams: int, ingest: str, device):
+def _resume(args, cfg: DemodConfig, n_streams: int, ingest: str, mesh):
     """Load --checkpoint and refuse every mismatch with this run before
     any output is touched. Returns the fleet."""
     if not (args.checkpoint and os.path.exists(args.checkpoint)):
         raise SystemExit("--resume needs an existing --checkpoint")
-    fleet = load_serving_checkpoint(args.checkpoint, device)
+    fleet = load_serving_checkpoint(args.checkpoint, mesh=mesh)
     if fleet.n_streams != n_streams:
         raise SystemExit(
             f"checkpoint has {fleet.n_streams} streams, inputs give "
@@ -307,7 +309,7 @@ def _write_rows(writer: SymbolWriter, outs, i: int) -> None:
 
 def main(argv=None) -> int:
     args = _parse_args(argv)
-    device = select_device()
+    mesh = make_mesh()
     cfg = DemodConfig(samplerate=args.samplerate, block_len=args.block_len)
     feed_len = args.chain * cfg.block_len     # samples per dispatch
     n_blocks_synth = max(
@@ -352,18 +354,18 @@ def main(argv=None) -> int:
 
     start_block = 0
     if args.resume:
-        fleet = _resume(args, cfg, n_streams, ingest, device)
+        fleet = _resume(args, cfg, n_streams, ingest, mesh)
         start_block = fleet.groups[0]._block_idx
         for s in sources:
             s.seek_blocks(start_block)
         print(f"resumed at chain {start_block}", flush=True)
     else:
         fleet = ServingFleet(cfg, n_streams, group_size=args.group_size,
-                             device=device,
-                             sweep_rescue_s=args.sweep_rescue,
+                             mesh=mesh, sweep_rescue_s=args.sweep_rescue,
                              chain_blocks=args.chain, ingest=ingest,
                              packed_output=True)
-    print(f"serving {n_streams} streams on {device}", flush=True)
+    print(f"serving {n_streams} streams on {', '.join(map(str, mesh))}",
+          flush=True)
 
     os.makedirs(args.out_dir, exist_ok=True)
     mode = "ab" if args.resume else "wb"

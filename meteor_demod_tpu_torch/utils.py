@@ -1,5 +1,6 @@
 """Formatting and CLI helper utilities (reference: utils.c), the device
-every entry point defaults to, and the host <-> card copies."""
+every entry point defaults to, the device list of a multi-device one, and
+the host <-> card copies."""
 
 from __future__ import annotations
 
@@ -30,6 +31,45 @@ def select_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def make_mesh(devices=None) -> list[torch.device]:
+    """The devices a multi-device entry point runs on, one shard each.
+
+    None (or "auto") means every visible card as cuda:0..n-1, or ["cpu"]
+    under METEOR_DEMOD_PLATFORM=cpu; like select_device it raises when the
+    card is wanted and CUDA is not available. A list is taken as given,
+    repeats allowed: ["cpu"] * 4 shards on the CPU, ["cuda:0", "cuda:0"]
+    runs two shards on one card. A card given without an index gets the
+    current one, so that every entry names its card."""
+    if devices is None or (isinstance(devices, str) and devices == "auto"):
+        if select_device().type == "cpu":
+            return [torch.device("cpu")]
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    if isinstance(devices, (str, torch.device)):
+        raise ValueError(f"a mesh is a list of devices or 'auto', not "
+                         f"{devices!r}")
+    out = []
+    for d in devices:
+        d = torch.device(d)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", torch.cuda.current_device())
+        out.append(d)
+    if not out:
+        raise ValueError("a mesh needs at least one device")
+    return out
+
+
+def mesh_devices(device=None, mesh=None) -> list[torch.device]:
+    """The device list of an entry point that takes device= (one device, the
+    spelling of one-device callers) or mesh= (a list, or "auto"); giving
+    both raises. With neither: every visible card (make_mesh())."""
+    if device is not None and mesh is not None:
+        raise ValueError("give device= or mesh=, not both")
+    if device is not None:
+        return [select_device(device)]
+    return make_mesh(mesh)
+
+
 # Host <-> card copies go through pinned staging memory: a copy from or to
 # pageable memory ran at under 1 GB/s on an H100's host (PERF.md section 6).
 # torch's pinned allocator caches its blocks and holds one back while a
@@ -42,48 +82,57 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A numpy array -> a tensor on `device`. On the CPU the array is used
     where it lies; to a card it goes in pieces of whole rows (of its first
     axis), about STAGE_BYTES each, through two pinned buffers in turn, and
-    the copies are only queued: work on the device's current stream sees
-    them done."""
+    the copies are only queued: work on that card's current stream sees them
+    done. Everything runs with `device` made the current card, so the copies
+    and the events that guard the pinned buffers are on `device`'s stream,
+    whichever card was current before."""
     src = torch.from_numpy(a)
     if device.type != "cuda":
         return src
-    out = torch.empty(src.shape, dtype=src.dtype, device=device)
-    if src.numel() == 0:
-        return out
-    rows = src.reshape(1) if src.dim() == 0 else src
-    dst = out.view(rows.shape)
-    n_rows = rows.shape[0]
-    piece = max(1, STAGE_BYTES // (rows[0].numel() * rows.element_size()))
-    stages = [torch.empty((min(piece, n_rows),) + rows.shape[1:],
-                          dtype=rows.dtype, pin_memory=True)
-              for _ in range(min(2, -(-n_rows // piece)))]
-    done = [torch.cuda.Event() for _ in stages]
-    for i, at in enumerate(range(0, n_rows, piece)):
-        n = min(piece, n_rows - at)
-        if i >= 2:
-            done[i % 2].synchronize()
-        stages[i % 2][:n].copy_(rows[at:at + n])
-        dst[at:at + n].copy_(stages[i % 2][:n], non_blocking=True)
-        done[i % 2].record()
+    with torch.cuda.device(device):
+        out = torch.empty(src.shape, dtype=src.dtype, device=device)
+        if src.numel() == 0:
+            return out
+        rows = src.reshape(1) if src.dim() == 0 else src
+        dst = out.view(rows.shape)
+        n_rows = rows.shape[0]
+        piece = max(1, STAGE_BYTES // (rows[0].numel() * rows.element_size()))
+        stages = [torch.empty((min(piece, n_rows),) + rows.shape[1:],
+                              dtype=rows.dtype, pin_memory=True)
+                  for _ in range(min(2, -(-n_rows // piece)))]
+        done = [torch.cuda.Event() for _ in stages]
+        for i, at in enumerate(range(0, n_rows, piece)):
+            n = min(piece, n_rows - at)
+            if i >= 2:
+                done[i % 2].synchronize()
+            stages[i % 2][:n].copy_(rows[at:at + n])
+            dst[at:at + n].copy_(stages[i % 2][:n], non_blocking=True)
+            done[i % 2].record()
     return out
 
 
 def to_host(tensors, copy: bool = True) -> list[np.ndarray]:
     """Tensors -> numpy arrays, each from its own device; from a card, all
-    queued into pinned memory and waited for once. The arrays are copies in
-    ordinary memory; with copy=False they are the pinned buffers themselves,
-    for a caller that consumes them at once (a kept one holds its buffer
-    back from the allocator's cache, and the next call pays for a new one)."""
+    queued into pinned memory on the current stream of the tensor's card and
+    waited for once, on every card among the tensors. The arrays are copies
+    in ordinary memory; with copy=False they are the pinned buffers
+    themselves, for a caller that consumes them at once (a kept one holds
+    its buffer back from the allocator's cache, and the next call pays for a
+    new one)."""
     out = []
+    cards = []
     for t in tensors:
         if t.device.type != "cuda":
             out.append(t.numpy())
             continue
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
+        with torch.cuda.device(t.device):
+            host.copy_(t, non_blocking=True)
         out.append(host)
-    if any(isinstance(h, torch.Tensor) for h in out):
-        torch.cuda.synchronize()
+        if t.device not in cards:
+            cards.append(t.device)
+    for card in cards:
+        torch.cuda.synchronize(card)
     return [(h.numpy().copy() if copy else h.numpy())
             if isinstance(h, torch.Tensor) else h for h in out]
 

@@ -504,3 +504,60 @@ def test_turbo_on_card_equals_sequential_decisions(cuda_device, cfg):
     for k in ("re", "im"):
         np.testing.assert_array_equal(np.sign(quantize(span.symbols[k])),
                                       np.sign(quantize(want[k])))
+
+
+# ------------------------------------------------------ shards on one card
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [CFG, OQ_CFG], ids=["qpsk", "oqpsk"])
+def test_shards_sharing_a_card_equal_one_device(cuda_device, cfg):
+    """FleetDemodulator over 2 and 4 shards on one card against the fleet
+    on the card alone: every chain's outputs, the carry and the integer
+    telemetry bitwise, through a flag forced into one shard and recovered
+    there. Then demod_array_turbo's lanes over 2 shards against one device,
+    bitwise."""
+    from meteor_demod_tpu_torch.demod.turbo import demod_array_turbo
+    from meteor_demod_tpu_torch.parallel.mesh import FleetDemodulator
+    B, K, n_chains, flagged = 8, 3, 4, 5
+    raw = np.round(_iq(B, n_chains * K * L, cfg)).astype(np.int16)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    fleets = [FleetDemodulator(cfg, B, dev, chain_blocks=K, ingest="i16",
+                               packed_output=True)]
+    fleets += [FleetDemodulator(cfg, B, mesh=[dev] * n, chain_blocks=K,
+                                ingest="i16", packed_output=True)
+               for n in (2, 4)]
+    for c in range(n_chains):
+        if c == 2:
+            for f in fleets:
+                per = f._shards.per
+                f._carries[flagged // per].flags[flagged % per] |= 2
+        span = raw[:, c * K * L:(c + 1) * K * L]
+        one, *sharded = [f.process_blocks(span) for f in fleets]
+        for n, got in zip((2, 4), sharded):
+            for k in ("sym_i", "sym_q", "valid", "locked_once"):
+                np.testing.assert_array_equal(
+                    getattr(got, k), getattr(one, k),
+                    err_msg=f"{n} shards, chain {c}, {k}")
+    want = carry_to_numpy(fleets[0].carry)
+    for f in fleets[1:]:
+        assert f.recovered_streams == fleets[0].recovered_streams == 1
+        got = carry_to_numpy(f.carry)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        for k, v in fleets[0].telemetry.items():
+            if k != "mean_agc_gain":
+                assert f.telemetry[k] == v, k
+
+    lanes, kb = 8, 24
+    n = lanes * kb * L + 3000
+    x = synth_psk(int(n * cfg.symrate / 230400) + 64, 230400,
+                  symrate=cfg.symrate, oqpsk=cfg.oqpsk, carrier_hz=150.0,
+                  amplitude=6000.0, snr_db=18.0, seed=31)[0][:n]
+    one = demod_array_turbo(cfg, x, chunks=lanes, device=dev, strict=True)
+    two = demod_array_turbo(cfg, x, chunks=lanes, mesh=[dev] * 2,
+                            strict=True)
+    assert two.passes == one.passes
+    np.testing.assert_array_equal(two.gauges, one.gauges)
+    for k in ("re", "im", "locked_once"):
+        np.testing.assert_array_equal(two.symbols[k], one.symbols[k],
+                                      err_msg=k)
