@@ -3,6 +3,7 @@
 
     python3 chip_measure.py [--json OUT.json] [--sections a,b,...]
                             [--ab OTHER.cu [OTHER2.cu ...]] [--tree DIR]
+                            [--io native|numpy|decode|quantize|pydll]
 
 Both modes (230.4 ksps, block_len 8192: QPSK 72 ksym/s and OQPSK 80 ksym/s).
 Prints one line per figure, each taken in this run. --tree DIR measures the
@@ -47,9 +48,16 @@ but `ab`, `turbo`, `lanes` and `cli` by default):
           the kernel alone and the FIR alone, ms per block at B = 104, 105,
           108 and 128 per mode (CUDA events, 20 calls a reading, the counts
           in turns forward and back);
-  cli     the CLI's -T 0 on chip_smoke.py (h)'s 120 s 16-bit WAV, per mode,
-          in this process as (h) runs it: a warm-up run, then CLI_RUNS
-          timed runs (wall seconds of cli.main);
+  cli     the CLI's -T 0 on chip_smoke.py (h)'s 120 s 16-bit WAV and its -B
+          on (d)'s 30 s WAV, per mode, in this process as (h) and (d) run
+          it: a warm-up run, then CLI_RUNS timed runs (wall seconds of
+          cli.main);
+  native  the CLI's I/O with io/native.py's C++ library against numpy, per
+          mode: -B on chip_smoke.py (d)'s 30 s WAV and -T 0 on (h)'s 120 s
+          WAV, a warm-up run, then NATIVE_ROUNDS rounds of native, numpy, numpy,
+          native; each run's wall seconds split into reading the file,
+          decoding, quantizing and writing (the CLI's own calls, timed from
+          outside), every run's .s byte-identical to the first;
   ab      with --ab: the tree's csrc/block_demod.cu against each other
           source given (an earlier commit's copy, a variant under test),
           built with the same flags plus -Xptxas -v (registers and spills are
@@ -58,6 +66,11 @@ but `ab`, `turbo`, `lanes` and `cli` by default):
           ms per block is read at B = 1, 128 and 16896 in turns (tree,
           others, others reversed, tree; 3 rounds, 20 launches a reading)
           and the medians are printed.
+--io picks io/native.py's paths for every section: the C++ library for the
+decode and the quantizer (native, the default), numpy for both, the library
+for one of them only (decode, quantize), or the library loaded with
+ctypes.PyDLL, which holds the GIL through each call (pydll); ignored with
+--tree.
 The card's name, power limit and max SM clock come first. Exits 1 without a
 CUDA card. Imports nothing of JAX.
 """
@@ -67,6 +80,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import itertools
 import json
 import os
 import statistics
@@ -79,8 +93,9 @@ import numpy as np
 import torch
 
 SECTIONS = ("sweep", "fir", "fleet", "driver", "serving", "stream")
-OPT_IN = ("turbo", "lanes", "cli")    # only when named in --sections
+OPT_IN = ("turbo", "lanes", "cli", "native")  # only when named
 CLI_RUNS = 3
+NATIVE_ROUNDS = 3        # native: rounds of (native, numpy, numpy, native)
 LANE_B = (104, 105, 108, 128)
 TURBO_RUNS = {120: (32, 105, 128, 512), 600: (32, 128, 512, 2048)}
 SWEEP_B = (1, 32, 128, 512, 1024, 4096, 16896, 33792)
@@ -587,27 +602,155 @@ def section_turbo(cfgs: dict, dev, res: dict) -> None:
 
 
 def section_cli(cfgs: dict, dev, res: dict) -> None:
-    """The CLI's -T 0 on (h)'s recording (see the module docstring)."""
+    """The CLI's -T 0 on (h)'s recording and -B on (d)'s (see the module
+    docstring)."""
     import chip_smoke as cs
     from meteor_demod_tpu_torch import cli
     from meteor_demod_tpu_torch.sim import write_wav
     for mode, cfg in cfgs.items():
+        for name, seconds, extra in (("T0", cs.TURBO_SECONDS, ["-T", "0"]),
+                                     ("B", cs.CLI_SECONDS, [])):
+            with tempfile.TemporaryDirectory() as tmp:
+                wav = os.path.join(tmp, "pass.wav")
+                write_wav(wav, cs.tiled_signal(cfg, seconds), cs.FS, 16)
+                argv = ["meteor_demod_tpu_torch", "-B", "-q",
+                        *cs.MODES[mode]["cli"], *extra, "-o",
+                        os.path.join(tmp, "out.s"), wav]
+                walls = []
+                for i in range(CLI_RUNS + 1):         # 0: warm-up
+                    t0 = time.perf_counter()
+                    if cli.main(argv) != 0:
+                        raise RuntimeError(f"{mode} CLI {extra} failed")
+                    walls.append(time.perf_counter() - t0)
+            print(f"{mode} CLI {' '.join(['-B', *extra])} on {seconds} s: "
+                  f"{' / '.join(f'{w:.3f}' for w in walls[1:])} s (warm-up "
+                  f"{walls[0]:.3f} s)", flush=True)
+            res[f"{mode}_cli_{name}_s"] = walls[1:]
+
+
+@contextlib.contextmanager
+def timed_io(secs: dict):
+    """Within it, the CLI's reads, decodes, quantizer calls and writer calls
+    add their seconds to `secs` (keys read, decode, quantize, write)."""
+    from meteor_demod_tpu_torch import cli
+    from meteor_demod_tpu_torch.io import wav, writer
+    saved = []
+
+    def timing(fn, key):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                secs[key] += time.perf_counter() - t0
+        return timed
+
+    class Reader:                         # the input file, reads timed
+        def __init__(self, f):
+            self.read = timing(f.read, "read")
+            self._f = f
+
+        def __getattr__(self, name):
+            return getattr(self._f, name)
+
+    open_input = cli.open_input
+
+    def timed_open(path):
+        f, info, is_stdin = open_input(path)
+        return Reader(f), info, is_stdin
+
+    for owner, name, fn in (
+            (cli, "open_input", timed_open),
+            (wav, "decode_iq", timing(wav.decode_iq, "decode")),  # -B
+            (cli, "decode_iq", timing(cli.decode_iq, "decode")),  # -T
+            (cli, "quantize_symbols", timing(cli.quantize_symbols,
+                                             "quantize")),
+            (writer.SymbolWriter, "feed",
+             timing(writer.SymbolWriter.feed, "write")),
+            (writer.SymbolWriter, "flush_partial",
+             timing(writer.SymbolWriter.flush_partial, "write"))):
+        saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, fn)
+    try:
+        yield
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+
+
+def section_native(cfgs: dict, dev, res: dict) -> None:
+    """The CLI's I/O, native against numpy (see the module docstring)."""
+    import chip_smoke as cs
+    from meteor_demod_tpu_torch import cli
+    from meteor_demod_tpu_torch.io import native
+    from meteor_demod_tpu_torch.sim import write_wav
+    if not native.available():
+        raise RuntimeError("io/native.py's library is not built")
+    for (mode, cfg), (name, seconds, extra) in itertools.product(
+            cfgs.items(), (("B", cs.CLI_SECONDS, []),
+                           ("T0", cs.TURBO_SECONDS, ["-T", "0"]))):
         with tempfile.TemporaryDirectory() as tmp:
             wav = os.path.join(tmp, "pass.wav")
-            write_wav(wav, cs.tiled_signal(cfg, cs.TURBO_SECONDS), cs.FS, 16)
+            write_wav(wav, cs.tiled_signal(cfg, seconds), cs.FS, 16)
+            out = os.path.join(tmp, "out.s")
             argv = ["meteor_demod_tpu_torch", "-B", "-q",
-                    *cs.MODES[mode]["cli"], "-T", "0", "-o",
-                    os.path.join(tmp, "out.s"), wav]
-            walls = []
-            for i in range(CLI_RUNS + 1):         # 0: warm-up
-                t0 = time.perf_counter()
-                if cli.main(argv) != 0:
-                    raise RuntimeError(f"{mode} CLI -T 0 failed")
-                walls.append(time.perf_counter() - t0)
-        print(f"{mode} CLI -T 0 on {cs.TURBO_SECONDS} s: "
-              f"{' / '.join(f'{w:.3f}' for w in walls[1:])} s (warm-up "
-              f"{walls[0]:.3f} s)", flush=True)
-        res[f"{mode}_cli_T0_s"] = walls[1:]
+                    *cs.MODES[mode]["cli"], *extra, "-o", out, wav]
+            if cli.main(argv) != 0:                     # warm-up
+                raise RuntimeError(f"{mode} CLI -{name} failed")
+            with open(out, "rb") as f:
+                first = f.read()
+            runs = {"native": [], "numpy": []}
+            order = ["native", "numpy", "numpy", "native"] * NATIVE_ROUNDS
+            for path in order:
+                secs = dict(read=0.0, decode=0.0, quantize=0.0, write=0.0)
+                with (cs.numpy_io() if path == "numpy"
+                      else contextlib.nullcontext()), timed_io(secs):
+                    t0 = time.perf_counter()
+                    if cli.main(argv) != 0:
+                        raise RuntimeError(f"{mode} CLI -{name} failed "
+                                           f"({path})")
+                    secs["wall"] = time.perf_counter() - t0
+                with open(out, "rb") as f:
+                    if f.read() != first:
+                        raise RuntimeError(f"{mode} CLI -{name} on the "
+                                           f"{path} path wrote other bytes")
+                runs[path].append(secs)
+        for path, rs in runs.items():
+            med = {k: statistics.median(r[k] for r in rs) for k in rs[0]}
+            walls = " / ".join(f"{r['wall']:.3f}" for r in rs)
+            print(f"{mode} CLI -{name} on {seconds} s, {path} I/O: wall "
+                  f"{walls} s; medians: read {med['read'] * 1e3:.1f}, "
+                  f"decode {med['decode'] * 1e3:.1f}, quantize "
+                  f"{med['quantize'] * 1e3:.1f}, write "
+                  f"{med['write'] * 1e3:.1f} ms of {med['wall']:.3f} s",
+                  flush=True)
+            res[f"{mode}_cli_{name}_{path}_io"] = rs
+
+
+@contextlib.contextmanager
+def io_paths(which: str):
+    """Within it, io/native.py's paths are those `which` names (see the
+    module docstring)."""
+    from meteor_demod_tpu_torch.io import native
+    if which != "numpy" and not native.available():
+        raise RuntimeError("io/native.py's library is not built")
+    saved = native.decode_iq_f32, native.quantize_soft, native._library
+    if which in ("numpy", "quantize"):
+        native.decode_iq_f32 = lambda raw, bps: None
+    if which in ("numpy", "decode"):
+        native.quantize_soft = lambda re, im: None
+    if which == "pydll":
+        cdll = native._library()
+        lib = ctypes.PyDLL(str(native.library_path()))
+        for name in ("meteor_decode_iq8", "meteor_decode_iq16",
+                     "meteor_decode_iq32", "meteor_quantize_soft"):
+            getattr(lib, name).argtypes = getattr(cdll, name).argtypes
+            getattr(lib, name).restype = getattr(cdll, name).restype
+        native._library = lambda: lib
+    try:
+        yield
+    finally:
+        native.decode_iq_f32, native.quantize_soft, native._library = saved
 
 
 def section_ab(cfgs: dict, dev, res: dict, others: list[str]) -> None:
@@ -680,6 +823,9 @@ def main() -> int:
                     help="time the tree's kernels against these sources")
     ap.add_argument("--tree", metavar="DIR",
                     help="measure the package of this checkout instead")
+    ap.add_argument("--io", default="native",
+                    choices=["native", "numpy", "decode", "quantize", "pydll"],
+                    help="io/native.py's paths (see the module docstring)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.stderr.write("chip_measure: no CUDA card\n")
@@ -705,9 +851,10 @@ def main() -> int:
     run = dict(sweep=section_sweep, fir=section_fir, fleet=section_fleet,
                driver=section_driver, serving=section_serving,
                stream=section_stream, turbo=section_turbo,
-               lanes=section_lanes, cli=section_cli)
-    for name in filter(None, args.sections.split(",")):
-        run[name](cfgs, dev, res)
+               lanes=section_lanes, cli=section_cli, native=section_native)
+    with (io_paths(args.io) if not args.tree else contextlib.nullcontext()):
+        for name in filter(None, args.sections.split(",")):
+            run[name](cfgs, dev, res)
 
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)

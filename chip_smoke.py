@@ -29,7 +29,9 @@ Phases, one line each; any failed check raises and the script exits non-zero:
   (d) the QPSK CLI: a 30 s, 16-bit, 230.4 ksps QPSK WAV (300 Hz carrier,
       20 dB) through `cli.main([... "-B", "-q", "-o", out, wav])` on the card:
       exit 0, at least one kernel launch per block, 72000*30 symbols within
-      1 %, carrier locked, mean |soft byte| in 55-75;
+      1 %, carrier locked, mean |soft byte| in 55-75; the C++ I/O library of
+      io/native.py built (the smoke fails without it), and the same run on
+      the numpy decode and quantizer byte-identical;
   (c-oq), (d-oq) the same for OQPSK (`-m oqpsk -r 80k`; 80000*30 symbols,
       mean |soft byte| in 60-79: the JAX CLI on the CPU reads 69.55 on the
       first 6 s of the same WAV);
@@ -62,7 +64,9 @@ Phases, one line each; any failed check raises and the script exits non-zero:
       band; and demod_array_turbo(..., strict=True) on the same samples:
       converged in at most 4 passes, no fallback (so no flagged lane), its
       symbols equal to demod_array's in count, locked_once and the sign of
-      every component;
+      every component; the recording's 16-bit decode and the quantizer on
+      demod_array's symbols through the native library and through numpy,
+      3 times each in turns: bitwise equal, median times;
   (i), (i-oq) turbo on stdin: the same 120 s as raw 16-bit through a pipe
       into `python -m meteor_demod_tpu_torch -T 32 --stdout -s 230400 --bps
       16 -` (a subprocess): exit 0, output equal in length to (h)'s -B file
@@ -86,8 +90,17 @@ Phases, one line each; any failed check raises and the script exits non-zero:
       gloo over localhost, cuda:0 each, 64 streams a process x 2 blocks)
       whose rows are bitwise the single-process fleet's and whose telemetry
       is the same in both processes; and dryrun_multichip(4).
-Each main path, QPSK ((c), (d), (e), (f), (h), (i), (j)) and OQPSK (the same
-with -oq, no (j)), is driven with both kernels' launch counts and the counts of blocks replayed by
+  (k) the soak (meteor_demod_tpu_torch/soak.py) at a quarter of its size:
+      2**28 samples of span turbo (16 spans of 128 lanes x 16 blocks, each
+      chained from the last one's exit carry: converged, every lane
+      accepted, locked, a sane carry; the exit carry saved at the half-way
+      span, restored, and the next span re-run bitwise), and 2**26 samples
+      of sequential chained dispatch at B = 1 (0 flags, locked):
+      Msamples/s of both legs, RSS at the start and the end;
+  (l) `scaling --mode overhead` at 128 streams: FleetDemodulator's step
+      against make_batch_demod on the same rows, ms a block.
+Each main path, QPSK ((c), (d), (e), (f), (h), (i), (j), (k), (l)) and
+OQPSK (the same with -oq, no (j), (k), (l)), is driven with both kernels' launch counts and the counts of blocks replayed by
 the numpy oracle on the host set to 0 just before it and read just after:
 the path's own kernel must have launched, the other kernel not at all, and
 the replay counts must be 0, so that every block came from the card. (The
@@ -101,6 +114,7 @@ Needs one card; with more, (j) spans them.
 
 from __future__ import annotations
 
+import contextlib
 import filecmp
 import json
 import os
@@ -133,6 +147,13 @@ SERVE_ARGS = ["--synth", "256", "--dead", "2", "--seconds", "6",
               "--group-size", "128", "--chain", "16", "--status-every", "4"]
 SERVE_KILL_AT = 5    # chains served before the stopped run ends
 SWEEP_HZ_PER_S = 825.0   # the acquisition sweep's rate at 72 ksym/s
+# (k): the soak's span leg (16 spans of 128 lanes x 16 blocks) and its
+# sequential leg (512 dispatches of 16 blocks), a quarter of the full soak's.
+SOAK_SPAN_SAMPLES = 1 << 28
+SOAK_SEQ_SAMPLES = 1 << 26
+OVERHEAD_STREAMS = 128   # (l): the fleet width of `scaling --mode overhead`
+OVERHEAD_STEPS = 16
+IO_ROUNDS = 3            # (h): decode and quantize timings, each path
 # The card's published peaks (H100 SXM data sheet) for the kernels' bound.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -160,6 +181,20 @@ def say(msg: str) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise AssertionError(what)
+
+
+@contextlib.contextmanager
+def numpy_io():
+    """Within it, decode_iq and quantize_symbols take their numpy paths (the
+    C++ library of io/native.py is left unused)."""
+    from meteor_demod_tpu_torch.io import native
+    saved = native.decode_iq_f32, native.quantize_soft
+    native.decode_iq_f32 = lambda raw, bps: None
+    native.quantize_soft = lambda re, im: None
+    try:
+        yield
+    finally:
+        native.decode_iq_f32, native.quantize_soft = saved
 
 
 def fleet_iq(cfg, n_streams: int, n_samples: int, seed: int,
@@ -437,8 +472,11 @@ def phase_d(cfg, dev, card: str, tag: str) -> None:
     from meteor_demod_tpu_torch.constants import RING_SYMBOLS
     from meteor_demod_tpu_torch.demod.pipeline import StreamDemodulator
     from meteor_demod_tpu_torch.sim import write_wav
+    from meteor_demod_tpu_torch.io import native
     mode = MODES["oqpsk" if cfg.oqpsk else "qpsk"]
     x = tiled_signal(cfg, CLI_SECONDS)
+    check(native.available(), f"({tag}) the C++ I/O library of io/native.py "
+          f"is not built (no C++ compiler?)")
     with tempfile.TemporaryDirectory() as tmp:
         wav, out = os.path.join(tmp, "pass.wav"), os.path.join(tmp, "pass.s")
         write_wav(wav, x, FS, 16)
@@ -450,7 +488,17 @@ def phase_d(cfg, dev, card: str, tag: str) -> None:
                        "-o", out, wav])
         secs = time.perf_counter() - t0
         soft = np.fromfile(out, dtype=np.int8)
-    launched = kernel(mode).launches - before
+        launched = kernel(mode).launches - before
+        # The same run on the numpy decode and quantizer: the same bytes.
+        np_out = os.path.join(tmp, "numpy.s")
+        with numpy_io():
+            t0 = time.perf_counter()
+            np_rc = cli.main(["meteor_demod_tpu_torch", "-B", "-q",
+                              *mode["cli"], "-o", np_out, wav])
+            np_secs = time.perf_counter() - t0
+        check(np_rc == 0 and filecmp.cmp(out, np_out, shallow=False),
+              f"({tag}) the CLI's .s on the numpy I/O path (exit {np_rc}) "
+              f"differs from the native path's")
     check(rc == 0, f"({tag}) CLI exit {rc}")
     check(launched >= blocks, f"({tag}) {launched} kernel launches for "
           f"{blocks} blocks")
@@ -469,7 +517,9 @@ def phase_d(cfg, dev, card: str, tag: str) -> None:
         f"230.4 ksps {'OQPSK' if cfg.oqpsk else 'QPSK'}: exit 0, {n_sym} "
         f"symbols (nominal {nominal}), locked, mean |soft| {mean_soft:.1f}, "
         f"{launched} kernel launches for {blocks} blocks, {replayed} blocks "
-        f"replayed on the host, {secs:.2f} s wall on {card}")
+        f"replayed on the host, {secs:.2f} s wall with the native I/O "
+        f"library ({native.library_path().name}), {np_secs:.2f} s on the "
+        f"numpy path, the two .s files byte-identical, on {card}")
 
 
 def device_busy_ms(fn) -> tuple[float, float]:
@@ -617,6 +667,37 @@ def same_decisions(got, ref, tag: str, view=lambda v: v) -> None:
               f"sequential stream's, first at symbol {bad[:1]}")
 
 
+def io_paths(payload: bytes, symbols: np.ndarray, tag: str) -> str:
+    """The 16-bit decode of `payload` and the int8 quantizer on `symbols`,
+    through io/native.py's C++ library and through numpy, IO_ROUNDS times
+    each in turns: every output bitwise equal. Returns the median times."""
+    from meteor_demod_tpu_torch.demod.pipeline import quantize_symbols
+    from meteor_demod_tpu_torch.io.wav import decode_iq
+    times = {"native": ([], []), "numpy": ([], [])}
+    ref = None
+    for r in range(IO_ROUNDS):
+        for path in ("native", "numpy")[::1 if r % 2 == 0 else -1]:
+            with numpy_io() if path == "numpy" else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                x = decode_iq(payload, 16)
+                t1 = time.perf_counter()
+                q = quantize_symbols(symbols)
+                t2 = time.perf_counter()
+            times[path][0].append(t1 - t0)
+            times[path][1].append(t2 - t1)
+            if ref is None:
+                ref = (x.view(np.int32), q)
+            check(np.array_equal(x.view(np.int32), ref[0])
+                  and np.array_equal(q, ref[1]),
+                  f"({tag}) the {path} decode or quantizer differs")
+    med = {p: [float(np.median(t)) * 1e3 for t in v] for p, v in times.items()}
+    return (f"decode of {len(payload) >> 20} MiB native {med['native'][0]:.1f} "
+            f"/ numpy {med['numpy'][0]:.1f} ms, quantize of {len(symbols)} "
+            f"symbols native {med['native'][1]:.1f} / numpy "
+            f"{med['numpy'][1]:.1f} ms (medians of {IO_ROUNDS}, outputs "
+            f"bitwise equal)")
+
+
 def phase_h(cfg, dev, card: str, tag: str) -> None:
     """Turbo on a file: CLI -T 0 beside CLI -B, and demod_array_turbo beside
     demod_array; see the module docstring."""
@@ -691,6 +772,7 @@ def phase_h(cfg, dev, card: str, tag: str) -> None:
     seq = demod_array(cfg, x)
     t_seq = time.perf_counter() - t0
     same_decisions(res.symbols, seq, tag)
+    io_line = io_paths(payload, seq, tag)
     hist = np.bincount(res.gauges % 4, minlength=4).tolist()
     TURBO[tag.replace("h", "i", 1)] = dict(tmp=tmp, raw=raw, seq=seq, x=x,
                                            batch=soft["batch"])
@@ -705,7 +787,7 @@ def phase_h(cfg, dev, card: str, tag: str) -> None:
         f"{secs['batch']:.2f} s for -B; demod_array_turbo strict: converged "
         f"in {res.passes} passes, no fallback, 0 flagged lanes, gauges mod 4 "
         f"{hist}, decisions == demod_array's on all {len(seq)} symbols, "
-        f"{t_turbo:.2f} s against {t_seq:.2f} s on {card}")
+        f"{t_turbo:.2f} s against {t_seq:.2f} s; {io_line} on {card}")
 
 
 def phase_i(cfg, dev, card: str, tag: str) -> None:
@@ -1052,6 +1134,57 @@ def phase_j(cfg, dev, card: str) -> None:
         f"{t_dry:.1f} s on {card}")
 
 
+def phase_k(cfg, dev, card: str) -> None:
+    """The soak at a quarter of its size: the span leg over SOAK_SPAN_SAMPLES
+    and the sequential leg over SOAK_SEQ_SAMPLES with every check of
+    meteor_demod_tpu_torch/soak.py (each span converged with every lane
+    accepted, sane and locked; the checkpoint's span replayed bitwise; the
+    sequential leg flag-free and locked)."""
+    from meteor_demod_tpu_torch import soak
+    size = soak.FULL
+    with tempfile.TemporaryDirectory() as tmp:
+        span = soak.span_soak(cfg, SOAK_SPAN_SAMPLES, size["chunks"],
+                              size["kb"], os.path.join(tmp, "carry.npz"), dev,
+                              nwarm=size["nwarm"],
+                              carrier_hz=size["carrier_hz"])
+    seq = soak.sequential_soak(cfg, SOAK_SEQ_SAMPLES, dev,
+                               carrier_hz=size["carrier_hz"],
+                               chain=size["chain"])
+    check(span["samples"] >= SOAK_SPAN_SAMPLES and span["replay_bitwise"],
+          f"(k) span leg {span}")
+    check(seq["samples"] >= SOAK_SEQ_SAMPLES, f"(k) sequential leg {seq}")
+    say(f"(k) soak: span leg {span['spans']} spans of {size['chunks']} lanes x "
+        f"{size['kb']} blocks, {span['samples']} samples "
+        f"({span['signal_minutes']:.1f} min of signal), every span converged "
+        f"in <= {span['passes_max']} passes with all lanes accepted, locked "
+        f"and sane, the span after the checkpoint (span "
+        f"{span['checkpoint_span']}) replayed bitwise, "
+        f"{span['msamples_per_s']:.1f} Msamples/s ({span['note']}), RSS "
+        f"{span['rss_start_mb']} -> {span['rss_end_mb']} MiB; sequential leg "
+        f"{seq['dispatches']} dispatches of {seq['chain']} blocks, "
+        f"{seq['samples']} samples, 0 flags, locked, "
+        f"{seq['msamples_per_s']:.1f} Msamples/s on {card}")
+
+
+def phase_l(cfg, dev, card: str) -> None:
+    """`python -m meteor_demod_tpu_torch.scaling --mode overhead` at
+    OVERHEAD_STREAMS streams: FleetDemodulator's step against the bare
+    make_batch_demod call on the same rows, per block."""
+    from meteor_demod_tpu_torch.scaling import run_overhead
+    r = run_overhead(cfg, OVERHEAD_STREAMS, OVERHEAD_STEPS, dev)
+    check(r["same_work_bitwise"], f"(l) the bare step's outputs or carry "
+          f"differ from the fleet's: {r}")
+    check(r["fleet_step_ms"] > 0 and r["plain_step_ms"] > 0, f"(l) {r}")
+    say(f"(l) scaling --mode overhead at {OVERHEAD_STREAMS} streams x "
+        f"{cfg.block_len} samples, the bare step's outputs and carry bitwise "
+        f"the fleet's: FleetDemodulator step "
+        f"{r['fleet_step_ms']:.3f} ms a block against make_batch_demod "
+        f"{r['plain_step_ms']:.3f} ms with its outputs read back (overhead "
+        f"{r['overhead_ms']:.3f} ms, efficiency bound "
+        f"{r['efficiency_lower_bound']:.3f}), {r['steps']} steps after "
+        f"{r['warm_steps']} to lock, on {card}")
+
+
 def kernel(mode: dict):
     """The wrapper of mode's kernel; its .launches is the kernel's count."""
     from meteor_demod_tpu_torch.kernels import block_demod as kb
@@ -1117,17 +1250,21 @@ def main() -> int:
     for m, other in (("qpsk", "oqpsk"), ("oqpsk", "qpsk")):
         rec[m]["launches"] = main_path(cfgs[m], dev, smi, MODES[m],
                                        MODES[other])
-    # (j) is a QPSK path of its own, read like the others; the 2-process
-    # fleet's launches are the workers' and are checked from their files.
+    # (j), (k) and (l) are QPSK paths of their own, read like the others;
+    # (j)'s 2-process fleet's launches are the workers' and are checked
+    # from their files.
     from meteor_demod_tpu_torch.demod.pipeline import StreamDemodulator
-    kernel(MODES["qpsk"]).launches = kernel(MODES["oqpsk"]).launches = 0
-    StreamDemodulator.replayed_blocks = 0
-    phase_j(cfgs["qpsk"], dev, smi)
-    check(StreamDemodulator.replayed_blocks == 0, "(j) blocks were replayed "
-          "on the host")
-    check(kernel(MODES["oqpsk"]).launches == 0, "(j) launched the OQPSK kernel")
-    check(kernel(MODES["qpsk"]).launches > 0, "(j) never launched its kernel")
-    rec["qpsk"]["launches"] += kernel(MODES["qpsk"]).launches
+    for phase, tag in ((phase_j, "j"), (phase_k, "k"), (phase_l, "l")):
+        kernel(MODES["qpsk"]).launches = kernel(MODES["oqpsk"]).launches = 0
+        StreamDemodulator.replayed_blocks = 0
+        phase(cfgs["qpsk"], dev, smi)
+        check(StreamDemodulator.replayed_blocks == 0,
+              f"({tag}) blocks were replayed on the host")
+        check(kernel(MODES["oqpsk"]).launches == 0,
+              f"({tag}) launched the OQPSK kernel")
+        check(kernel(MODES["qpsk"]).launches > 0,
+              f"({tag}) never launched its kernel")
+        rec["qpsk"]["launches"] += kernel(MODES["qpsk"]).launches
     phase_g(smi)
 
     say(json.dumps({"kernels": [{

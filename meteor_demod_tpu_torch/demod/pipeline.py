@@ -24,6 +24,7 @@ import torch
 from ..config import DemodConfig
 from ..constants import SWEEP_STEP
 from ..dsp.fir import f32_to_iq, iq_to_f32
+from ..io import native
 from ..utils import select_device
 from .backend import make_batch_demod
 from .state import (CARRY_FIELDS, BlockOutput, DemodCarry, batch_carry,
@@ -506,7 +507,12 @@ def quantize(x):
 
 
 def quantize_symbols(symbols: np.ndarray) -> np.ndarray:
-    """Soft symbols -> interleaved int8 bytes (quantize each component)."""
+    """Soft symbols -> interleaved int8 bytes (quantize each component):
+    the C++ quantizer of native/meteor_io.cc when it is built
+    (io/native.py), numpy otherwise, the same bytes either way."""
+    out = native.quantize_soft(symbols["re"], symbols["im"])
+    if out is not None:
+        return out
     out = np.empty(2 * len(symbols), dtype=np.int8)
     out[0::2] = quantize(symbols["re"]).astype(np.int8)
     out[1::2] = quantize(symbols["im"]).astype(np.int8)

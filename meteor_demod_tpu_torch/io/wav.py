@@ -25,6 +25,7 @@ from typing import BinaryIO, Iterator, Optional
 import numpy as np
 
 from ..constants import FILE_BUFFER_SIZE
+from . import native
 
 _HEADER_FMT = "<4sI4s4sIHHIIHH4sI"
 _HEADER_SIZE = struct.calcsize(_HEADER_FMT)  # 44
@@ -57,7 +58,16 @@ def wav_parse(f: BinaryIO) -> Optional[WavInfo]:
 
 
 def decode_iq(raw: bytes, bps: int) -> np.ndarray:
-    """Interleaved I/Q bytes -> complex64, reference scaling (raw counts)."""
+    """Interleaved I/Q bytes -> complex64, reference scaling (raw counts).
+
+    The C++ decoder of native/meteor_io.cc when it is built (io/native.py),
+    numpy otherwise: the same values either way. A length numpy cannot
+    view at the width (an odd byte at 16 bits) goes to numpy, which
+    raises."""
+    if len(raw) % max(bps // 8, 1) == 0:
+        pairs = native.decode_iq_f32(raw, bps)
+        if pairs is not None:
+            return pairs.view(np.complex64).ravel()
     if bps == 8:
         a = np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - np.float32(128)
     elif bps == 16:

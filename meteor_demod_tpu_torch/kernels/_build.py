@@ -4,7 +4,8 @@ Each kernel is one .cu file under csrc/ with a plain extern "C" launcher,
 compiled by nvcc into a shared library and bound with ctypes (no PyTorch
 headers, so a build takes seconds). The library goes into _build/ next to
 this package, named by a hash of the source and the flags, and is built at
-first use. A failed build raises with nvcc's output; there is no fallback.
+first use (sharedlib.py). A failed build raises with nvcc's output; there
+is no fallback.
 
 Flags: Hopper only (sm_90a), -fmad=false so no multiply and add is fused,
 and the default IEEE -prec-sqrt=true -prec-div=true -ftz=false. Never
@@ -16,16 +17,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import os
 import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+from ..sharedlib import BUILD_DIR, compile_library, keyed_path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-prec-sqrt=true", "-prec-div=true", "-ftz=false",
               "-shared", "-Xcompiler", "-fPIC")
@@ -42,9 +40,7 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{key}.so"
+    return keyed_path(name, CSRC / f"{name}.cu", NVCC_FLAGS, BUILD_DIR)
 
 
 def build(name: str) -> Path:
@@ -52,17 +48,8 @@ def build(name: str) -> Path:
     out = library_path(name)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}.cu:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)            # atomic: a concurrent build never sees half
-    return out
+    return compile_library([find_nvcc(), *NVCC_FLAGS], CSRC / f"{name}.cu",
+                           out)
 
 
 @functools.lru_cache(maxsize=None)

@@ -31,6 +31,8 @@ from meteor_demod_tpu_torch.kernels.block_demod import (block_demod,
                                                         block_demod_torch)
 from meteor_demod_tpu_torch.sim import synth_psk
 
+import torch_adversarial_inputs as adv
+
 L = 1024
 CFG = DemodConfig(samplerate=230400, block_len=L)
 OQ_CFG = DemodConfig(samplerate=230400, symrate=80000.0, oqpsk=True,
@@ -180,6 +182,20 @@ def test_three_chained_blocks_with_pre_fire(cuda_device, mode):
         for slot_in, out in seen:
             np.testing.assert_array_equal(out["valid"][:, 0],
                                           (slot_in == 2).astype(np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(adv.INPUTS))
+def test_adversarial_inputs_kernel_matches_plain_bitwise(cuda_device, name):
+    """The inputs of tests/test_torch_adversarial.py (a full-scale 16-bit
+    cold start, onset after 5 blocks of silence, a symbol clock 1.5 x
+    2**-12 fast), one stream through every block: they drive the gate's
+    O(1) estimate and its min(rem, K) non-fire step hardest. Every output
+    and carry leaf bitwise."""
+    cfg = adv.CFG
+    x = adv.INPUTS[name](cfg)
+    _kernel_vs_plain(cfg, torch.tensor(iq_to_f32(x)[None], device=cuda_device),
+                     len(x) // cfg.block_len)
 
 
 def _crafted(cfg, batch, dev, **leaves):
