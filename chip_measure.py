@@ -9,7 +9,7 @@ Both modes (230.4 ksps, block_len 8192: QPSK 72 ksym/s and OQPSK 80 ksym/s).
 Prints one line per figure, each taken in this run. --tree DIR measures the
 package of another checkout (an earlier commit unpacked with git archive)
 with this script, so that two trees are compared in one call. Sections (all
-but `ab`, `turbo`, `lanes` and `cli` by default):
+but `ab`, `turbo`, `lanes`, `cli`, `native` and `shards` by default):
   sweep   each recurrence kernel's ms per block against the stream count B
           (CUDA events, 10 launches each; Ft tiled from 128 simulated
           streams), and B = 128 on an Ft of 32 distinct streams tiled four
@@ -58,6 +58,14 @@ but `ab`, `turbo`, `lanes` and `cli` by default):
           native; each run's wall seconds split into reading the file,
           decoding, quantizing and writing (the CLI's own calls, timed from
           outside), every run's .s byte-identical to the first;
+  shards  chip_smoke.py (j)'s sharded fleet driver: FleetDemodulator(cfg,
+          128, mesh=[card] * 2, chain_blocks=16, ingest="i16",
+          packed_output=True), QPSK, beside the fleet on the card alone,
+          in turns (one, shards, shards, one; a warm-up chain, then
+          SHARD_CHAINS timed chains each): ms per chain, every sharded
+          output bitwise the one-device one; and a torch.profiler window
+          over one sharded chain, whose summed kernel time exceeds its
+          span on the card when the shards' kernels run at once;
   ab      with --ab: the tree's csrc/block_demod.cu against each other
           source given (an earlier commit's copy, a variant under test),
           built with the same flags plus -Xptxas -v (registers and spills are
@@ -93,9 +101,10 @@ import numpy as np
 import torch
 
 SECTIONS = ("sweep", "fir", "fleet", "driver", "serving", "stream")
-OPT_IN = ("turbo", "lanes", "cli", "native")  # only when named
+OPT_IN = ("turbo", "lanes", "cli", "native", "shards")  # only when named
 CLI_RUNS = 3
 NATIVE_ROUNDS = 3        # native: rounds of (native, numpy, numpy, native)
+SHARD_CHAINS = 6         # shards: timed chains a reading
 LANE_B = (104, 105, 108, 128)
 TURBO_RUNS = {120: (32, 105, 128, 512), 600: (32, 128, 512, 2048)}
 SWEEP_B = (1, 32, 128, 512, 1024, 4096, 16896, 33792)
@@ -366,6 +375,61 @@ def section_driver(cfgs: dict, dev, res: dict) -> None:
               f"{prof['wall_ms']:.3f} ms (profiled)", flush=True)
         res[f"{mode}_driver"] = dict(msamples=out, profile=prof)
         del xi, feeds
+
+
+def section_shards(cfgs: dict, dev, res: dict) -> None:
+    import chip_smoke as cs
+    from meteor_demod_tpu_torch.parallel.mesh import FleetDemodulator
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = cfgs["qpsk"]
+    B, K = cs.N_FLEET, cs.CHAIN
+    span = K * cfg.block_len
+    raw = cs.fleet_iq(cfg, B, (SHARD_CHAINS + 1) * span, 5, dev).round(
+        ).clamp(-32768, 32767).to(torch.int16).cpu().numpy()
+    kw = dict(chain_blocks=K, ingest="i16", packed_output=True)
+    fleets = {"one": lambda: FleetDemodulator(cfg, B, dev, **kw),
+              "shards": lambda: FleetDemodulator(cfg, B, mesh=[dev] * 2, **kw)}
+    ms = {name: [] for name in fleets}
+    outs = {}
+    for name in ("one", "shards", "shards", "one"):
+        f = fleets[name]()
+        f.process_blocks(raw[:, :span])                       # warm-up
+        got = []
+        t0 = time.perf_counter()
+        for c in range(1, SHARD_CHAINS + 1):
+            got.append(f.process_blocks(raw[:, c * span:(c + 1) * span]))
+        ms[name].append((time.perf_counter() - t0) * 1e3 / SHARD_CHAINS)
+        outs.setdefault(name, got)
+    same = all(np.array_equal(getattr(a, k), getattr(b, k))
+               for a, b in zip(outs["one"], outs["shards"])
+               for k in ("sym_i", "sym_q", "valid", "locked_once"))
+    if not same:
+        raise RuntimeError("sharded outputs differ from the one-device ones")
+    for name, v in ms.items():
+        print(f"qpsk fleet driver {name}, B={B} x {K} blocks (i16 in, int8 "
+              f"out): {v[0]:.2f} and {v[1]:.2f} ms per chain", flush=True)
+    f = fleets["shards"]()
+    f.process_blocks(raw[:, :span])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        f.process_blocks(raw[:, span:2 * span])
+        torch.cuda.synchronize()
+    # Kernels and copies; a stream's wait for another is no work.
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and e.time_range.elapsed_us() > 0
+               and "Wait" not in e.name and "Sync" not in e.name]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    start = min(e.time_range.start for e in kernels)
+    end = max(e.time_range.end for e in kernels)
+    streams = len({e.device_resource_id for e in kernels})
+    print(f"qpsk sharded chain (profiled): kernels and copies {busy:.3f} ms "
+          f"summed over {streams} streams, spanning {(end - start) / 1e3:.3f}"
+          f" ms on the card", flush=True)
+    res["shards"] = dict(ms_per_chain=ms, bitwise=same, busy_ms=busy,
+                         span_ms=(end - start) / 1e3, streams=streams)
 
 
 def section_serving(cfgs: dict, dev, res: dict) -> None:
@@ -851,7 +915,8 @@ def main() -> int:
     run = dict(sweep=section_sweep, fir=section_fir, fleet=section_fleet,
                driver=section_driver, serving=section_serving,
                stream=section_stream, turbo=section_turbo,
-               lanes=section_lanes, cli=section_cli, native=section_native)
+               lanes=section_lanes, cli=section_cli, native=section_native,
+               shards=section_shards)
     with (io_paths(args.io) if not args.tree else contextlib.nullcontext()):
         for name in filter(None, args.sections.split(",")):
             run[name](cfgs, dev, res)

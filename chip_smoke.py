@@ -77,7 +77,8 @@ Phases, one line each; any failed check raises and the script exits non-zero:
       sequential stream's.
   (j) several devices: the shards are every card when there are several
       (and they divide 128 and 104), else two shards over the cards there
-      are, both on cuda:0 with one card. On them: (e)'s QPSK fleet driver,
+      are, both on cuda:0 with one card, each then on a CUDA stream of its
+      own (parallel/mesh.py Shards). On them: (e)'s QPSK fleet driver,
       FleetDemodulator(..., mesh=shards) on (e)'s int16 input, 3 chains:
       int8 outputs bitwise equal to (e)'s, carry and integer telemetry after
       chain 2 equal to (e)'s, mean_agc_gain within rtol 1e-6, Msamples/s
@@ -90,6 +91,12 @@ Phases, one line each; any failed check raises and the script exits non-zero:
       gloo over localhost, cuda:0 each, 64 streams a process x 2 blocks)
       whose rows are bitwise the single-process fleet's and whose telemetry
       is the same in both processes; and dryrun_multichip(4).
+  (j-streams) the stream contract: the fleet step (make_fleet_demod, (e)'s
+      shape, 2 chains of (e)'s input) and a StreamDemodulator (24 blocks
+      and a tail of (h)'s recording, fed 8192 samples at a time) queued
+      under a side stream while the default stream spins, each bitwise
+      (outputs, carry, telemetry; soft bytes) to the same run on the
+      default stream;
   (k) the soak (meteor_demod_tpu_torch/soak.py) at a quarter of its size:
       2**28 samples of span turbo (16 spans of 128 lanes x 16 blocks, each
       chained from the last one's exit carry: converged, every lane
@@ -99,14 +106,15 @@ Phases, one line each; any failed check raises and the script exits non-zero:
       Msamples/s of both legs, RSS at the start and the end;
   (l) `scaling --mode overhead` at 128 streams: FleetDemodulator's step
       against make_batch_demod on the same rows, ms a block.
-Each main path, QPSK ((c), (d), (e), (f), (h), (i), (j), (k), (l)) and
-OQPSK (the same with -oq, no (j), (k), (l)), is driven with both kernels' launch counts and the counts of blocks replayed by
+Each main path, QPSK ((c), (d), (e), (f), (h), (i), (j), (j-streams), (k),
+(l)) and OQPSK (the same with -oq, no (j), (j-streams), (k), (l)), is
+driven with both kernels' launch counts and the counts of blocks replayed by
 the numpy oracle on the host set to 0 just before it and read just after:
 the path's own kernel must have launched, the other kernel not at all, and
 the replay counts must be 0, so that every block came from the card. (The
 serving host of (g) is a process of its own: its launches are not in these
-counts.) The line before the last is the kernels' JSON record, the last line
-is {"ok": true, ...}.
+counts.) Each phase's line is followed by its time. The line before the
+last is the kernels' JSON record, the last line is {"ok": true, ...}.
 
 Imports nothing of JAX or of the JAX package. Exits 1 without a CUDA card.
 Needs one card; with more, (j) spans them.
@@ -176,6 +184,14 @@ MODES = {
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def timed(tag: str, phase, *args):
+    """phase(*args), followed by a line with its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    say(f"({tag}) took {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def check(ok: bool, what: str) -> None:
@@ -987,8 +1003,7 @@ def phase_j(cfg, dev, card: str) -> None:
                                               to_device, to_host)
     mesh = smoke_mesh()
     names = ", ".join(map(str, mesh))
-    e, x = dict(MESHED), MESHED.pop("x")
-    MESHED.clear()
+    e, x = dict(MESHED), MESHED["x"]
     L, span = cfg.block_len, CHAIN * cfg.block_len
 
     # ---- the copies: more than two staging pieces to and from each card,
@@ -1008,6 +1023,9 @@ def phase_j(cfg, dev, card: str) -> None:
     # ---- the fleet driver over the shards against (e) -----------------
     fleet = FleetDemodulator(cfg, N_FLEET, chain_blocks=CHAIN, ingest="i16",
                              packed_output=True, mesh=mesh)
+    shared = fleet._shards.own_stream
+    check(shared == [len(set(mesh)) < len(mesh)] * len(mesh),
+          f"(j) shards with a stream of their own: {shared}")
     walls = []
     for c in range(3):
         t0 = time.perf_counter()
@@ -1116,7 +1134,9 @@ def phase_j(cfg, dev, card: str) -> None:
     dryrun_multichip(4)
     t_dry = time.perf_counter() - t0
     say(f"(j) several devices, shards on {names} "
-        f"({torch.cuda.device_count()} card(s)): {a.nbytes >> 20} MiB to and "
+        f"({torch.cuda.device_count()} card(s)"
+        f"{', each on a CUDA stream of its own' if shared[0] else ''}): "
+        f"{a.nbytes >> 20} MiB to and "
         f"from each card and back bitwise; fleet driver {N_FLEET} x "
         f"{CHAIN} blocks x 3 chains (i16 in, int8 out) == (e) bitwise, carry "
         f"and integer telemetry after chain 2 equal, mean_agc_gain within "
@@ -1132,6 +1152,67 @@ def phase_j(cfg, dev, card: str) -> None:
         f"rows == the single-process fleet's bitwise, telemetry the same in "
         f"both, {t_mh:.1f} s with start-up; dryrun_multichip(4) ok in "
         f"{t_dry:.1f} s on {card}")
+
+
+# Cycles of torch.cuda._sleep, a spin kernel: ~50 ms at an H100's clock.
+SPIN = 100_000_000
+
+
+def phase_j_streams(cfg, dev, card: str) -> None:
+    """The stream contract: the fleet step and the stream demodulator under
+    a side stream while the default stream spins, bitwise to the default
+    stream; see the module docstring."""
+    from meteor_demod_tpu_torch.demod.pipeline import (StreamDemodulator,
+                                                       quantize_symbols)
+    from meteor_demod_tpu_torch.demod.state import batch_carry
+    from meteor_demod_tpu_torch.parallel.mesh import TELEMETRY, make_fleet_demod
+    from meteor_demod_tpu_torch.utils import to_device, to_host
+    raw, x = MESHED["raw"], MESHED["x"]
+    MESHED.clear()
+    span = CHAIN * cfg.block_len
+    n = 24 * cfg.block_len + 3000
+
+    def fleet_step():
+        step = make_fleet_demod(cfg, N_FLEET, dev, chain=CHAIN, ingest="i16",
+                                packed=True)
+        carry, out = batch_carry(cfg, N_FLEET, dev), {}
+        for c in range(2):
+            carry, o, tel = step(carry, to_device(np.ascontiguousarray(
+                raw[:, c * span:(c + 1) * span]), dev))
+            got = to_host([getattr(o, k) for k in
+                           ("sym_i", "sym_q", "valid", "locked_once")]
+                          + [tel[k] for k in TELEMETRY])
+            out.update({f"{c}.{i}": v for i, v in enumerate(got)})
+        out.update(leaves(carry))
+        return out
+
+    def stream():
+        d = StreamDemodulator(cfg, dev)
+        parts = [d.process(x[at:at + 8192]) for at in range(0, n, 8192)]
+        sym = np.concatenate(parts + [d.finish()])
+        return {"s": quantize_symbols(sym), "locked_once": sym["locked_once"],
+                **leaves(d._carry)}
+
+    side = torch.cuda.Stream(dev)
+    lines = []
+    for name, fn in (("fleet step", fleet_step), ("stream", stream)):
+        want = fn()
+        torch.cuda._sleep(SPIN)
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            got = fn()
+        secs = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        for k in want:
+            check(np.array_equal(got[k], want[k]), f"(j-streams) {name}: "
+                  f"{k} under a side stream differs from the default stream")
+        lines.append(f"{name} {secs:.2f} s")
+    say(f"(j-streams) under a side stream while the default stream spins: "
+        f"the fleet step ({N_FLEET} x {CHAIN} blocks x 2 chains, i16 in, "
+        f"int8 out) and a StreamDemodulator ({n} samples in 8192-sample "
+        f"pieces) bitwise equal to the default stream in every output, "
+        f"carry leaf and telemetry value and in the .s bytes; "
+        f"{', '.join(lines)} on {card}")
 
 
 def phase_k(cfg, dev, card: str) -> None:
@@ -1202,7 +1283,7 @@ def main_path(cfg, dev, smi: str, mode: dict, other: dict) -> int:
                        (phase_h, "h"), (phase_i, "i")):
         kernel(mode).launches = kernel(other).launches = 0
         StreamDemodulator.replayed_blocks = 0
-        phase(cfg, dev, smi, tag + suffix)
+        timed(tag + suffix, phase, cfg, dev, smi, tag + suffix)
         launches = kernel(mode).launches
         check(launches > 0, f"({tag + suffix}) the {mode['name']} path never "
               f"launched its kernel")
@@ -1242,11 +1323,11 @@ def main() -> int:
 
     cfgs = dict(qpsk=DemodConfig(samplerate=FS),
                 oqpsk=DemodConfig(samplerate=FS, symrate=80000.0, oqpsk=True))
-    rec = dict(qpsk=phase_b(cfgs["qpsk"], dev, "b"),
-               oqpsk=phase_b(cfgs["oqpsk"], dev, "b-oq"))
+    rec = dict(qpsk=timed("b", phase_b, cfgs["qpsk"], dev, "b"),
+               oqpsk=timed("b-oq", phase_b, cfgs["oqpsk"], dev, "b-oq"))
     for m, tag in (("qpsk", "b-lanes"), ("oqpsk", "b-lanes-oq")):
-        rec[m]["max_abs_err"] = max(rec[m]["max_abs_err"],
-                                    phase_b_lanes(cfgs[m], dev, tag))
+        rec[m]["max_abs_err"] = max(rec[m]["max_abs_err"], timed(
+            tag, phase_b_lanes, cfgs[m], dev, tag))
     for m, other in (("qpsk", "oqpsk"), ("oqpsk", "qpsk")):
         rec[m]["launches"] = main_path(cfgs[m], dev, smi, MODES[m],
                                        MODES[other])
@@ -1254,10 +1335,11 @@ def main() -> int:
     # (j)'s 2-process fleet's launches are the workers' and are checked
     # from their files.
     from meteor_demod_tpu_torch.demod.pipeline import StreamDemodulator
-    for phase, tag in ((phase_j, "j"), (phase_k, "k"), (phase_l, "l")):
+    for phase, tag in ((phase_j, "j"), (phase_j_streams, "j-streams"),
+                       (phase_k, "k"), (phase_l, "l")):
         kernel(MODES["qpsk"]).launches = kernel(MODES["oqpsk"]).launches = 0
         StreamDemodulator.replayed_blocks = 0
-        phase(cfgs["qpsk"], dev, smi)
+        timed(tag, phase, cfgs["qpsk"], dev, smi)
         check(StreamDemodulator.replayed_blocks == 0,
               f"({tag}) blocks were replayed on the host")
         check(kernel(MODES["oqpsk"]).launches == 0,
@@ -1265,7 +1347,7 @@ def main() -> int:
         check(kernel(MODES["qpsk"]).launches > 0,
               f"({tag}) never launched its kernel")
         rec["qpsk"]["launches"] += kernel(MODES["qpsk"]).launches
-    phase_g(smi)
+    timed("g", phase_g, smi)
 
     say(json.dumps({"kernels": [{
         "name": MODES[m]["name"], "route": "cuda", "source": KERNEL_SOURCE,

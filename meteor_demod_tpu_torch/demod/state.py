@@ -93,15 +93,10 @@ def _init_values(cfg) -> dict:
 
 def batch_carry(cfg, batch: int, device=None) -> DemodCarry:
     """Initial carry with a leading (batch,) axis on every leaf, on `device`
-    (None: utils.select_device's default, the card)."""
-    device = select_device(device)
-    leaves = {}
-    for k, v in _init_values(cfg).items():
-        dtype = torch.float32 if isinstance(v, float) else torch.int32
-        leaves[k] = torch.full((batch,), v, dtype=dtype, device=device)
-    leaves["fir_tail"] = torch.zeros((batch, cfg.taps - 1, 2),
-                                     dtype=torch.float32, device=device)
-    return DemodCarry(**leaves)
+    (None: utils.select_device's default, the card). Its leaves are copied
+    from host memory (carry_from_numpy), so they are written when this
+    returns and any stream of the card may read them without waiting."""
+    return carry_from_numpy(batch_carry_np(cfg, batch), device)
 
 
 def init_carry(cfg, device=None) -> DemodCarry:
@@ -113,8 +108,11 @@ def init_carry(cfg, device=None) -> DemodCarry:
 def batch_carry_np(cfg, batch: int) -> dict:
     """batch_carry as a dict of host numpy leaves (carry_to_numpy's layout),
     for bookkeeping that stays on the host."""
-    return {k: np.array(v) for k, v in
-            carry_to_numpy(batch_carry(cfg, batch, "cpu")).items()}
+    leaves = {k: np.full(batch, v, np.float32 if isinstance(v, float)
+                         else np.int32)
+              for k, v in _init_values(cfg).items()}
+    leaves["fir_tail"] = np.zeros((batch, cfg.taps - 1, 2), np.float32)
+    return {k: leaves[k] for k in CARRY_FIELDS}
 
 
 def carry_to_numpy(carry: DemodCarry) -> dict:
@@ -125,7 +123,8 @@ def carry_to_numpy(carry: DemodCarry) -> dict:
 
 def carry_from_numpy(leaves: dict, device=None) -> DemodCarry:
     """Dict of numpy leaves (carry_to_numpy of either package) -> carry on
-    `device` (None: the card, as batch_carry)."""
+    `device` (None: the card, as batch_carry). Each leaf is a blocking copy
+    on the current stream: written when this returns."""
     device = select_device(device)
     out = {}
     for k in CARRY_FIELDS:

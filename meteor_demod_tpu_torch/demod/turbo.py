@@ -60,8 +60,9 @@ on the host in float64 and one carry crosses to the device and back a pass.
 
 Several devices (demod_array_turbo's mesh=): the lanes split into equal
 contiguous shards (parallel/mesh.py Shards), one per device of the list,
-each running the same per-lane program on its own lanes, so the result is
-bitwise the one-device result. The lane shift, the gauges and the
+each running the same per-lane program on its own lanes (on a CUDA stream
+of its own when shards share a card), so the result is bitwise the
+one-device result. The lane shift, the gauges and the
 fingerprints stay on the host in global lane order; the sequential tail and
 any fallback run on the first device.
 
@@ -586,12 +587,15 @@ def make_pass_runner(cfg: DemodConfig, blocks, last_symbol=False,
 
     def run(g_np: dict):
         done = []
-        for part, step, rows in zip(parts, steps, shards.rows):
-            f, outs, _ = step(carry_from_numpy(
-                {k: g_np[k][rows] for k in CARRY_FIELDS}, part.device), part)
-            stats = lane_fingerprint(outs)
-            if last_symbol:
-                stats += last_valid_symbol(outs)
+        for i, (part, step, rows) in enumerate(zip(parts, steps,
+                                                   shards.rows)):
+            with shards.on(i, [part]):
+                f, outs, _ = step(carry_from_numpy(
+                    {k: g_np[k][rows] for k in CARRY_FIELDS}, part.device),
+                    part)
+                stats = lane_fingerprint(outs)
+                if last_symbol:
+                    stats += last_valid_symbol(outs)
             done.append((f, outs, stats))
         f_np = shards.carry_to_numpy([d[0] for d in done])
         host = shards.to_host([list(d[2]) for d in done])
@@ -611,10 +615,12 @@ def _lanes_to_host(outs, shards: Shards, P: int):
     at once."""
     parts = outs if isinstance(outs, list) else [outs]
     want = []
-    for o, rows in zip(parts, shards.rows):
+    for i, (o, rows) in enumerate(zip(parts, shards.rows)):
         n = max(0, min(P, rows.stop) - rows.start)
-        want.append([o.sym_re[:n], o.sym_im[:n], o.valid[:n].to(torch.int8),
-                     o.locked_once[:n].to(torch.int8)])
+        with shards.on(i):
+            want.append([o.sym_re[:n], o.sym_im[:n],
+                         o.valid[:n].to(torch.int8),
+                         o.locked_once[:n].to(torch.int8)])
     host = shards.to_host(want, copy=len(parts) > 1)
     return [host[0][j] if len(host) == 1 else
             np.concatenate([h[j] for h in host]) for j in range(4)]
@@ -625,9 +631,12 @@ def _output_fingerprint(outs, rows: int, shards: Shards) -> tuple:
     list of the shards'), as two ints."""
     parts = outs if isinstance(outs, list) else [outs]
     lanes = shards.per * len(shards)
-    host = shards.to_host([list(output_fingerprint(
-        o, rows, lane0=r.start, lanes=lanes))
-        for o, r in zip(parts, shards.rows)])
+    fps = []
+    for i, (o, r) in enumerate(zip(parts, shards.rows)):
+        with shards.on(i):
+            fps.append(list(output_fingerprint(o, rows, lane0=r.start,
+                                               lanes=lanes)))
+    host = shards.to_host(fps)
     cs = sum(int(h[1]) for h in host)
     return (sum(int(h[0]) for h in host),
             (cs + 2 ** 31) % 2 ** 32 - 2 ** 31)

@@ -367,7 +367,14 @@ def _launch(name: str, cfg, carry: DemodCarry, Ft: torch.Tensor, rows: int
             ) -> tuple[DemodCarry, BlockOutput]:
     """Check the inputs, launch the extern "C" launcher `name` of
     csrc/block_demod.cu on Ft's card and current stream (no
-    synchronisation), and unpack its (rows, B) outputs and packed carry."""
+    synchronisation), and unpack its (rows, B) outputs and packed carry.
+
+    Streams: the packed carry, the outputs and the launch all go to that
+    stream, the caller's or a shard's (parallel/mesh.py Shards.on), so the
+    kernel reads Ft and the carry after the work queued there before it,
+    and work queued there after it sees its outputs. Ft and the carry made
+    on another stream must be waited for first. The bits do not depend on
+    the stream."""
     if Ft.device.type != "cuda":
         raise ValueError(f"no block_demod kernel for device {Ft.device}")
     B = _check(cfg, carry, Ft)

@@ -13,11 +13,12 @@ telemetry ticks as the reference's UI thread polls its DSP getters
 Several devices (`mesh=`, a device list as utils.make_mesh gives it; the JAX
 package's shard_map over its `streams` axis): the stream rows split into
 equal contiguous shards, one per list entry, each with its own step and
-carry on its device (Shards). Every shard's upload and step is queued
-before any readback, so several cards work at once; shards that share a
-card run in turn on its current stream. A shard's program and shapes do not
-depend on the shard count, so every stream's output is bitwise its
-one-device output. The telemetry combines on the host as psum / pmean
+carry on its device (Shards). Every shard's upload, step and readback is
+queued before the host waits for any readback, so several cards work at
+once, and shards that share a card each run on a CUDA stream of their own.
+A shard's program and shapes do not depend on the shard count or on the
+stream it runs on, so every stream's output is bitwise its one-device
+output. The telemetry combines on the host as psum / pmean
 would: the four counts add and mean_agc_gain is the mean of the shard
 means. No collective runs inside one process; parallel/multihost.py adds
 the one across processes.
@@ -38,6 +39,7 @@ parked streams is refused (io/checkpoint.py).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
@@ -53,7 +55,7 @@ from ..demod.state import (CARRY_FIELDS, BlockOutput, DemodCarry,
                            PackedOutput, batch_carry, carry_from_numpy,
                            carry_to_numpy)
 from ..dsp.fir import f32_to_iq, iq_to_f32
-from ..utils import mesh_devices, select_device, to_device, to_host
+from ..utils import mesh_devices, select_device, to_device, to_host_async
 
 INGESTS = {"f32": np.float32, "i16": np.int16, "u8": np.uint8}
 
@@ -157,11 +159,25 @@ class Shards:
     """Equal contiguous row shards of a batch of n_rows, one per entry of
     `devices` (repeats allowed): shard i holds rows[i] on devices[i].
 
-    A shard's work goes to its card's current stream: with every shard's
-    work queued before one readback, shards on several cards overlap and
-    shards that share a card run in turn. (A CUDA stream per shard on one
-    card gave wrong outputs from the second dispatch on: ROADMAP.md list
-    C.)"""
+    Streams. A shard that is its card's only one works on the card's
+    current stream, the caller's. Shards that share a card each get a CUDA
+    stream of their own (own_stream; made at first use, kept for the
+    Shards' life), so that they run at once on it, as shards on several
+    cards do. A CPU shard has no stream. A shard's work is queued inside
+    on(i), and its readback by to_host / carry_to_numpy, each on its
+    stream after its work, so no readback can overtake the work it reads.
+
+    Why that is safe: on(i) first makes the shard's stream wait for the
+    caller's current stream, so whatever the caller queued before (an
+    upload, a carry it built or edited in place) is done before the shard
+    reads it; and the tensors the shard reads that the caller's stream
+    allocated are marked with record_stream, so torch's caching allocator
+    hands their memory out again only when the shard's stream is done with
+    them, whenever the caller frees them. Tensors the shard allocates stay
+    on its stream: the caller reads them only through to_host, which waits
+    for their copies on the host. A shard's program and shapes do not
+    depend on the stream it runs on, so its rows are bitwise the
+    one-device rows."""
 
     def __init__(self, devices, n_rows: int, what: str = "n_streams"):
         self.devices = list(devices)
@@ -172,9 +188,32 @@ class Shards:
         self.per = n_rows // n
         self.rows = [slice(i * self.per, (i + 1) * self.per)
                      for i in range(n)]
+        self.own_stream = [d.type == "cuda" and self.devices.count(d) > 1
+                           for d in self.devices]
+        self._streams = {}
 
     def __len__(self) -> int:
         return len(self.devices)
+
+    @contextlib.contextmanager
+    def on(self, i: int, reads=()):
+        """Queue shard i's work inside this block: on its own stream, which
+        first waits for the caller's current stream of its card, when
+        own_stream[i]; else where the caller's work goes. `reads`: the
+        tensors the work reads that the caller made (a carry's leaves, an
+        upload), marked as in use on the shard's stream."""
+        if not self.own_stream[i]:
+            yield
+            return
+        dev = self.devices[i]
+        if i not in self._streams:
+            self._streams[i] = torch.cuda.Stream(dev)
+        stream = self._streams[i]
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        for t in reads:
+            t.record_stream(stream)
+        with torch.cuda.stream(stream):
+            yield
 
     def carry_from_numpy(self, leaves: dict) -> list:
         """Global numpy carry leaves -> one DemodCarry per shard."""
@@ -182,20 +221,25 @@ class Shards:
             {k: np.asarray(leaves[k])[r] for k in CARRY_FIELDS}, dev)
             for dev, r in zip(self.devices, self.rows)]
 
-    @staticmethod
-    def to_host(per_shard: list, copy: bool = True) -> list:
-        """[shard i's tensors] -> [shard i's numpy arrays], in one
-        utils.to_host call: one wait for each card."""
-        flat = to_host([t for tensors in per_shard for t in tensors], copy)
-        at = np.cumsum([0] + [len(tensors) for tensors in per_shard])
-        return [flat[a:b] for a, b in zip(at[:-1], at[1:])]
+    def to_host(self, per_shard: list, copy: bool = True) -> list:
+        """[shard i's tensors] -> [shard i's numpy arrays]: each shard's
+        copies queued on its stream (on(i)), then all waited for."""
+        waits = []
+        for i, tensors in enumerate(per_shard):
+            with self.on(i):
+                waits.append(to_host_async(tensors))
+        return [wait(copy) for wait in waits]
 
     def carry_to_numpy(self, carries: list) -> dict:
         """One DemodCarry per shard -> the global numpy carry leaves."""
-        host = self.to_host([[getattr(c, k) for k in CARRY_FIELDS]
-                             for c in carries])
+        host = self.to_host([carry_leaves(c) for c in carries])
         return {k: _cat([h[j] for h in host])
                 for j, k in enumerate(CARRY_FIELDS)}
+
+
+def carry_leaves(carry: DemodCarry) -> list:
+    """The carry's leaves in CARRY_FIELDS order."""
+    return [getattr(carry, k) for k in CARRY_FIELDS]
 
 
 class FleetDemodulator:
@@ -347,8 +391,9 @@ class FleetDemodulator:
         return outs
 
     def _dispatch(self, blocks: np.ndarray):
-        """One step of every shard on checked blocks: every shard's upload
-        and step are queued before any readback. Sets stream_flags, and the
+        """One step of every shard on checked blocks: every shard's upload,
+        step and readback are queued, each on its shard's stream, before the
+        host waits for the readbacks. Sets stream_flags, and the
         telemetry on a telemetry tick. Returns (the pre-dispatch carries,
         which stay on their devices and are fetched only if a stream flags;
         the outputs as numpy in stream order; whether this was a tick; the
@@ -358,15 +403,18 @@ class FleetDemodulator:
         tel_tick = (self._block_idx % self.telemetry_every) == 0
         self._block_idx += 1
         fns = self._get_fns(tel_tick)
-        stepped = []
+        waits = []
         for i, rows in enumerate(sh.rows):
-            x = to_device(blocks[rows], sh.devices[i])
-            self._carries[i], outs, tel = fns[i](self._carries[i], x)
-            want = list(dataclasses.astuple(outs)) + [self._carries[i].flags]
-            if tel_tick:
-                want += [self._carries[i].locked] + [tel[k] for k in TELEMETRY]
-            stepped.append(want)
-        host = sh.to_host(stepped)
+            with sh.on(i, carry_leaves(self._carries[i])):
+                x = to_device(blocks[rows], sh.devices[i])
+                self._carries[i], outs, tel = fns[i](self._carries[i], x)
+                want = list(dataclasses.astuple(outs)) + [
+                    self._carries[i].flags]
+                if tel_tick:
+                    want += [self._carries[i].locked] + [
+                        tel[k] for k in TELEMETRY]
+                waits.append(to_host_async(want))
+        host = [wait() for wait in waits]
         col = lambda j: _cat([h[j] for h in host])
         n_out = len(dataclasses.astuple(outs))
         outs = type(outs)(*(col(j) for j in range(n_out)))

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import os
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -75,17 +76,27 @@ def mesh_devices(device=None, mesh=None) -> list[torch.device]:
 # torch's pinned allocator caches its blocks and holds one back while a
 # non-blocking copy still reads it, so the buffers are made where they are
 # used and cost an allocation only the first time.
+#
+# Streams: both directions queue their copies on the current stream of the
+# card they copy to or from (the caller's, or a shard's under
+# parallel/mesh.py Shards.on), after whatever is already queued there, and
+# the host waits for nothing else. So a caller that queues the port on a
+# stream of its own gets the same bits as on the default stream, and work
+# on other streams of the card is neither waited for nor raced.
 STAGE_BYTES = 32 << 20
 
 
 def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A numpy array -> a tensor on `device`. On the CPU the array is used
     where it lies; to a card it goes in pieces of whole rows (of its first
-    axis), about STAGE_BYTES each, through two pinned buffers in turn, and
-    the copies are only queued: work on that card's current stream sees them
-    done. Everything runs with `device` made the current card, so the copies
-    and the events that guard the pinned buffers are on `device`'s stream,
-    whichever card was current before."""
+    axis), about STAGE_BYTES each, through two pinned buffers in turn.
+
+    The tensor is allocated, and the copies are queued, on `device`'s
+    current stream, made the current card for the call whichever card was
+    current before: work queued on that stream afterwards sees the copies
+    done; work on another stream must wait for that stream first. The host
+    returns once the last piece is in pinned memory, and waits only for the
+    copy out of a buffer it fills again (an event on the same stream)."""
     src = torch.from_numpy(a)
     if device.type != "cuda":
         return src
@@ -111,14 +122,20 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return out
 
 
-def to_host(tensors, copy: bool = True) -> list[np.ndarray]:
-    """Tensors -> numpy arrays, each from its own device; from a card, all
-    queued into pinned memory on the current stream of the tensor's card and
-    waited for once, on every card among the tensors. The arrays are copies
-    in ordinary memory; with copy=False they are the pinned buffers
-    themselves, for a caller that consumes them at once (a kept one holds
-    its buffer back from the allocator's cache, and the next call pays for a
-    new one)."""
+def to_host_async(tensors) -> Callable[..., list]:
+    """Queue tensors -> pinned host memory and return `wait(copy=True)`,
+    which waits for those copies alone and returns numpy arrays, each from
+    its own device.
+
+    A card's tensors are copied on that card's current stream at the time
+    of this call, after the work already queued there (the work that made
+    them, when it was queued on the same stream), and an event recorded
+    after them on that stream is what `wait` waits for: neither the card's
+    other streams nor work queued later is waited for. A CPU tensor is
+    returned as its numpy view. The arrays are copies in ordinary memory;
+    with copy=False they are the pinned buffers themselves, for a caller
+    that consumes them at once (a kept one holds its buffer back from the
+    allocator's cache, and the next call pays for a new one)."""
     out = []
     cards = []
     for t in tensors:
@@ -131,10 +148,25 @@ def to_host(tensors, copy: bool = True) -> list[np.ndarray]:
         out.append(host)
         if t.device not in cards:
             cards.append(t.device)
+    done = []
     for card in cards:
-        torch.cuda.synchronize(card)
-    return [(h.numpy().copy() if copy else h.numpy())
-            if isinstance(h, torch.Tensor) else h for h in out]
+        with torch.cuda.device(card):
+            done.append(torch.cuda.Event())
+            done[-1].record()
+
+    def wait(copy: bool = True) -> list:
+        for event in done:
+            event.synchronize()
+        return [(h.numpy().copy() if copy else h.numpy())
+                if isinstance(h, torch.Tensor) else h for h in out]
+
+    return wait
+
+
+def to_host(tensors, copy: bool = True) -> list[np.ndarray]:
+    """Tensors -> numpy arrays, each from its own device: to_host_async's
+    copies, waited for at once."""
+    return to_host_async(tensors)(copy)
 
 
 def gen_fname(t: float | None = None) -> str:
