@@ -23,6 +23,11 @@ Phases, one line each; any failed check raises and the script exits non-zero:
       output and carry leaf, at the other lane counts the main paths launch
       it with: 1 ((d), every sequential tail), 32 (the spans of (i)) and 105
       ((h): no multiple of 4), on a block entered mid-stream;
+  (b-hifi) the QPSK kernel at the bench's hi-fi config (rrc_order 64,
+      interp 10, block_len 8192): (b)'s comparison at it, 128 streams x 2
+      blocks, every output and carry leaf bitwise, streams 0-1 against the
+      oracle; then at pll_bw 0.5 and 2.0 (the bench's hifi_pllbw) a block
+      entered mid-stream at 128 streams, bitwise;
   (c) the QPSK fleet width: 128 streams x 16 chained blocks through
       make_batch_demod on the card: no flags, symbol counts within 1 % of
       nominal, Msamples/s;
@@ -105,7 +110,16 @@ Phases, one line each; any failed check raises and the script exits non-zero:
       of sequential chained dispatch at B = 1 (0 flags, locked):
       Msamples/s of both legs, RSS at the start and the end;
   (l) `scaling --mode overhead` at 128 streams: FleetDemodulator's step
-      against make_batch_demod on the same rows, ms a block.
+      against make_batch_demod on the same rows, ms a block;
+  (m) the port's bench, `python -m meteor_demod_tpu_torch.bench` (every
+      section of the root bench.py at its shapes, each gated on
+      correctness), as a subprocess on the card: exit 0, its JSON line
+      (printed on a line of its own) on "device" cuda and this card, no
+      field null, turbo converged; each section's launch counts (from the
+      line: the bench is a process of its own and sets both counts to 0
+      just before each section) show its own kernel launched and the other
+      not (OQPSK for oqpsk and turbo_oqpsk, QPSK for the rest, none for
+      the FIR section), and their sums go into the kernels' record.
 Each main path, QPSK ((c), (d), (e), (f), (h), (i), (j), (j-streams), (k),
 (l)) and OQPSK (the same with -oq, no (j), (j-streams), (k), (l)), is
 driven with both kernels' launch counts and the counts of blocks replayed by
@@ -113,7 +127,9 @@ the numpy oracle on the host set to 0 just before it and read just after:
 the path's own kernel must have launched, the other kernel not at all, and
 the replay counts must be 0, so that every block came from the card. (The
 serving host of (g) is a process of its own: its launches are not in these
-counts.) Each phase's line is followed by its time. The line before the
+counts; the bench of (m) is one too, and reports its own section by
+section, each from 0.) Each
+phase's line is followed by its time. The line before the
 last is the kernels' JSON record, the last line is {"ok": true, ...}.
 
 Imports nothing of JAX or of the JAX package. Exits 1 without a CUDA card.
@@ -123,6 +139,7 @@ Needs one card; with more, (j) spans them.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import filecmp
 import json
 import os
@@ -162,6 +179,14 @@ SOAK_SEQ_SAMPLES = 1 << 26
 OVERHEAD_STREAMS = 128   # (l): the fleet width of `scaling --mode overhead`
 OVERHEAD_STEPS = 16
 IO_ROUNDS = 3            # (h): decode and quantize timings, each path
+# (m): the bench's limit; it took 126 s whole on an NVIDIA H100 80GB HBM3
+# at 700 W.
+BENCH_TIMEOUT_S = 600
+# (b-hifi): the loop bandwidths of the bench's hifi_pllbw section.
+HIFI_PLL_BW = (0.5, 2.0)
+# (m): which kernel each bench section launches; the FIR section runs none.
+OQPSK_SECTIONS = ("oqpsk", "turbo_oqpsk")
+NO_KERNEL_SECTIONS = ("fir",)
 # The card's published peaks (H100 SXM data sheet) for the kernels' bound.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -390,21 +415,42 @@ def phase_b(cfg, dev, tag: str) -> dict:
     return dict(max_abs_err=err, **t)
 
 
+def mid_stream_case(cfg, x, banks, dev, what: str):
+    """Block 0 of x (B, 2 L, 2) through the kernel alone gives a mid-stream
+    entry carry (a filled FIR tail; for OQPSK, streams with a split
+    symbol), block 1 through the kernel and its plain version, every output
+    and carry leaf bitwise, and at least 95 % of the nominal symbols.
+    Returns (the entry carry, the symbols, the largest difference, the
+    plain version's seconds)."""
+    from meteor_demod_tpu_torch.demod.state import batch_carry
+    from meteor_demod_tpu_torch.dsp.fir import polyphase_fir_block
+    from meteor_demod_tpu_torch.kernels.block_demod import (block_demod,
+                                                            block_demod_torch)
+    L, B = cfg.block_len, x.shape[0]
+    entry = batch_carry(cfg, B, dev)
+    Ft, tail = polyphase_fir_block(x[:, :L], entry.fir_tail, banks)
+    entry, _ = block_demod(cfg, entry, Ft)
+    Ft, _ = polyphase_fir_block(x[:, L:], tail, banks)
+    kc, ko = block_demod(cfg, entry, Ft)
+    t0 = time.perf_counter()
+    pc, po = block_demod_torch(cfg, entry, Ft)
+    a, _, err = same_bitwise(what, kc, ko, pc, po)
+    plain_s = time.perf_counter() - t0
+    nominal = L * cfg.symrate / FS
+    symbols = int(a["valid"].sum())
+    check(symbols > B * 0.95 * nominal, f"{what}: too few symbols")
+    return entry, symbols, err, plain_s
+
+
 def phase_b_lanes(cfg, dev, tag: str) -> float:
     """The kernel against its plain version at the other lane counts the main
     paths launch it with: 1 (the CLI's -B, every sequential tail), SPAN_LANES
     (the spans of (i)) and the -T 0 lane count of (h), which is no multiple
     of 4 and so takes the 4-byte cp.async path with a ragged last warp. Per
-    count: block 0 through the kernel alone gives a mid-stream entry carry
-    (a filled FIR tail; for OQPSK, streams with a split symbol), block 1
-    through both, every output and carry leaf bitwise. Returns the largest
+    count, a block entered mid-stream (mid_stream_case). Returns the largest
     difference."""
     from meteor_demod_tpu_torch import cli
-    from meteor_demod_tpu_torch.demod.state import batch_carry
-    from meteor_demod_tpu_torch.dsp.fir import (make_fir_banks,
-                                                polyphase_fir_block)
-    from meteor_demod_tpu_torch.kernels.block_demod import (block_demod,
-                                                            block_demod_torch)
+    from meteor_demod_tpu_torch.dsp.fir import make_fir_banks
     L = cfg.block_len
     counts = (1, SPAN_LANES, cli.turbo_lanes(TURBO_SECONDS * FS, L))
     check(counts[2] % 4 != 0 and counts[2] < N_FLEET,
@@ -413,29 +459,42 @@ def phase_b_lanes(cfg, dev, tag: str) -> float:
     banks = torch.as_tensor(make_fir_banks(cfg), device=dev)
     err, notes = 0.0, []
     for B in counts:
-        xb = x[:B].contiguous()
-        entry = batch_carry(cfg, B, dev)
-        Ft, tail = polyphase_fir_block(xb[:, :L], entry.fir_tail, banks)
-        entry, _ = block_demod(cfg, entry, Ft)
-        Ft, _ = polyphase_fir_block(xb[:, L:], tail, banks)
-        kc, ko = block_demod(cfg, entry, Ft)
-        t0 = time.perf_counter()
-        pc, po = block_demod_torch(cfg, entry, Ft)
-        a, _, block_err = same_bitwise(f"({tag}) B={B}", kc, ko, pc, po)
-        plain_s = time.perf_counter() - t0
+        entry, symbols, block_err, plain_s = mid_stream_case(
+            cfg, x[:B].contiguous(), banks, dev, f"({tag}) B={B}")
         err = max(err, block_err)
-        nominal = L * cfg.symrate / FS
-        check(int(a["valid"].sum()) > B * 0.95 * nominal,
-              f"({tag}) B={B}: too few symbols")
         split = int((entry.slot == 2).sum()) if cfg.oqpsk else 0
         check(not cfg.oqpsk or B == 1 or split > 0,
               f"({tag}) B={B}: no stream entered with a split symbol")
-        notes.append(f"B={B} ({int(a['valid'].sum())} symbols"
+        notes.append(f"B={B} ({symbols} symbols"
                      + (f", {split} pre-fires" if cfg.oqpsk else "")
                      + f", plain {plain_s:.1f} s)")
     say(f"({tag}) kernel == plain bitwise, outputs and carry, on a block "
         f"entered mid-stream at the other lane counts of the main paths: "
         f"{'; '.join(notes)} (max_abs_err {err})")
+    return err
+
+
+def phase_b_hifi(cfg, dev, tag: str) -> float:
+    """The QPSK kernel at the config of the bench's hifi and hifi_pllbw
+    sections (rrc_order 64, interp 10: 129 taps, 10 ticks a sample): (b)
+    at it (128 streams x 2 blocks, every output and carry leaf bitwise, the
+    oracle on streams 0-1), then at each of HIFI_PLL_BW's loop bandwidths a
+    block entered mid-stream at 128 streams (mid_stream_case). Returns the
+    largest difference."""
+    from meteor_demod_tpu_torch.dsp.fir import make_fir_banks
+    err = phase_b(cfg, dev, tag)["max_abs_err"]
+    notes = []
+    for bw in HIFI_PLL_BW:
+        c = dataclasses.replace(cfg, pll_bw=bw)
+        x = fleet_iq(c, N_FLEET, 2 * c.block_len, SEED + 3, dev)
+        banks = torch.as_tensor(make_fir_banks(c), device=dev)
+        _, symbols, block_err, plain_s = mid_stream_case(
+            c, x, banks, dev, f"({tag}) pll_bw={bw}")
+        err = max(err, block_err)
+        notes.append(f"pll_bw {bw} ({symbols} symbols, plain {plain_s:.1f} s)")
+    say(f"({tag}) kernel == plain bitwise, outputs and carry, on a block "
+        f"entered mid-stream at {N_FLEET} streams: {'; '.join(notes)} "
+        f"(max_abs_err {err})")
     return err
 
 
@@ -945,6 +1004,46 @@ def phase_g(card: str) -> None:
         f"(synthesis and start-up excluded) on {card}")
 
 
+def phase_m(card: str) -> dict:
+    """The port's bench as a subprocess on the card (its log goes to this
+    script's stderr); returns its kernels' launch counts summed over its
+    sections, each section having launched its own kernel only."""
+    from meteor_demod_tpu_torch.bench import SECTIONS
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("METEOR_DEMOD_PLATFORM", None)                   # the card
+    proc = subprocess.run([sys.executable, "-m",
+                           "meteor_demod_tpu_torch.bench"], env=env, cwd=root,
+                          stdout=subprocess.PIPE, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    out = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and out, f"(m) the bench exit "
+          f"{proc.returncode}, stdout {proc.stdout[-500:]!r}")
+    line = json.loads(out[-1])
+    say(out[-1])
+    check("null" not in out[-1], "(m) a field of the line is null")
+    check(line["device"] == "cuda" and line["card"] == card,
+          f"(m) the bench ran on {line['device']} {line['card']}")
+    check(line["turbo_converged"], "(m) turbo did not converge")
+    per_section = line["kernel_launches"]
+    check(set(per_section) == {"fleet", *SECTIONS},
+          f"(m) launch counts of sections {sorted(per_section)}")
+    launches = {MODES[m]["name"]: 0 for m in MODES}
+    for section, counts in per_section.items():
+        own = (None if section in NO_KERNEL_SECTIONS else
+               MODES["oqpsk" if section in OQPSK_SECTIONS else "qpsk"]["name"])
+        for name, n in counts.items():
+            check(n > 0 if name == own else n == 0,
+                  f"(m) section {section} launched {name} {n} times")
+            launches[name] += n
+    say(f"(m) bench: exit 0, headline {line['value']} Msamples/s at "
+        f"{line['fleet_batch']} streams, {len(line)} fields, none null, "
+        f"every section's own kernel only (none for "
+        f"{', '.join(NO_KERNEL_SECTIONS)}), launches {launches} on {card}, "
+        f"{line['power_limit_w']} W")
+    return launches
+
+
 def smoke_mesh() -> list:
     """(j)'s shards: every card when there are several and they divide the
     fleet's streams and MESH_LANES, else two shards over the cards there
@@ -1328,6 +1427,9 @@ def main() -> int:
     for m, tag in (("qpsk", "b-lanes"), ("oqpsk", "b-lanes-oq")):
         rec[m]["max_abs_err"] = max(rec[m]["max_abs_err"], timed(
             tag, phase_b_lanes, cfgs[m], dev, tag))
+    rec["qpsk"]["max_abs_err"] = max(rec["qpsk"]["max_abs_err"], timed(
+        "b-hifi", phase_b_hifi, DemodConfig(samplerate=FS, rrc_order=64,
+                                            interp=10), dev, "b-hifi"))
     for m, other in (("qpsk", "oqpsk"), ("oqpsk", "qpsk")):
         rec[m]["launches"] = main_path(cfgs[m], dev, smi, MODES[m],
                                        MODES[other])
@@ -1348,6 +1450,9 @@ def main() -> int:
               f"({tag}) never launched its kernel")
         rec["qpsk"]["launches"] += kernel(MODES["qpsk"]).launches
     timed("g", phase_g, smi)
+    bench = timed("m", phase_m, card)
+    for m in ("qpsk", "oqpsk"):
+        rec[m]["launches"] += bench[MODES[m]["name"]]
 
     say(json.dumps({"kernels": [{
         "name": MODES[m]["name"], "route": "cuda", "source": KERNEL_SOURCE,
