@@ -457,7 +457,9 @@ def section_serving(cfgs: dict, dev, res: dict) -> None:
             outs = fleet.process_blocks(batch)
             t2 = time.perf_counter()
             for i in range(n):
-                serve_fleet._write_rows(writers[i], outs, i)
+                serve_fleet._write_rows(writers[i], outs.sym_i[i],
+                                        outs.sym_q[i], outs.valid[i],
+                                        outs.locked_once[i])
             t3 = time.perf_counter()
             for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
                 parts[k].append(dt * 1e3)

@@ -120,8 +120,21 @@ Phases, one line each; any failed check raises and the script exits non-zero:
       just before each section) show its own kernel launched and the other
       not (OQPSK for oqpsk and turbo_oqpsk, QPSK for the rest, none for
       the FIR section), and their sums go into the kernels' record.
+  (n), (n-oq) a serving fleet moved between the two packages' checkpoint
+      layouts: a ServingFleet of 256 streams in two groups of 128 ((e)'s
+      shape: chains of 16 blocks, i16 in, int8 out; (e)'s kind of fixture
+      for 128 streams, tiled, (e)'s own input where it is long enough; its
+      noise-only stream is a dead antenna in each group), saved after 3
+      chains; the file rewritten by
+      io/checkpoint.py write_parked_form into the JAX package's form with
+      both dead antennas parked; both files hold every field the JAX
+      package's loaders read (JAX_FIELDS); each loaded on the card, nothing
+      parked and nothing deferred, runs 2 more chains: int8 outputs and
+      every carry leaf bitwise equal to the uninterrupted run's. (n-oq): the
+      same for one OQPSK group of 128, saved after 1 chain and resumed for
+      1.
 Each main path, QPSK ((c), (d), (e), (f), (h), (i), (j), (j-streams), (k),
-(l)) and OQPSK (the same with -oq, no (j), (j-streams), (k), (l)), is
+(l), (n)) and OQPSK (the same with -oq, no (j), (j-streams), (k), (l)), is
 driven with both kernels' launch counts and the counts of blocks replayed by
 the numpy oracle on the host set to 0 just before it and read just after:
 the path's own kernel must have launched, the other kernel not at all, and
@@ -187,6 +200,9 @@ HIFI_PLL_BW = (0.5, 2.0)
 # (m): which kernel each bench section launches; the FIR section runs none.
 OQPSK_SECTIONS = ("oqpsk", "turbo_oqpsk")
 NO_KERNEL_SECTIONS = ("fir",)
+# (n): per mode, the groups of N_FLEET streams, the chains before the save
+# and the chains after it.
+MIGRATE = {"qpsk": (2, 3, 2), "oqpsk": (1, 1, 1)}
 # The card's published peaks (H100 SXM data sheet) for the kernels' bound.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
@@ -686,6 +702,7 @@ def phase_ef(cfg, dev, card: str, tag: str) -> None:
         locked = int(fleet.telemetry["locked_streams"])
         if not cfg.oqpsk:
             MESHED.update(raw=raw, outs=outs, after_two=after_two, msps=msps)
+        FLEET_INPUT[cfg.oqpsk] = raw
 
         # ---- (f): resume from the checkpoint taken after chain 2 ----------
         ftag = tag.replace("e", "f", 1)
@@ -725,6 +742,9 @@ TURBO = {}
 # What (e) and (h) leave for (j), QPSK only: (e)'s int16 input, its outputs,
 # carry and telemetry after chain 2 and its rate; (h)'s recording.
 MESHED = {}
+# (e)'s int16 input per mode (key: cfg.oqpsk), which (n) reuses where it is
+# long enough: synthesizing an OQPSK fleet costs the host ~15 s.
+FLEET_INPUT = {}
 
 
 def byte_diff(a: np.ndarray, b: np.ndarray) -> float:
@@ -1042,6 +1062,84 @@ def phase_m(card: str) -> dict:
         f"{', '.join(NO_KERNEL_SECTIONS)}), launches {launches} on {card}, "
         f"{line['power_limit_w']} W")
     return launches
+
+
+def phase_n(cfg, dev, card: str, tag: str) -> None:
+    """(n): a serving fleet saved, rewritten into the JAX package's parked
+    form, and resumed on the card; see the module docstring."""
+    from meteor_demod_tpu_torch.io.checkpoint import (
+        jax_fields_missing, load_serving_checkpoint, save_serving_checkpoint,
+        write_parked_form)
+    from meteor_demod_tpu_torch.parallel.serving import ServingFleet
+    groups, cut, more = MIGRATE["oqpsk" if cfg.oqpsk else "qpsk"]
+    n, span = groups * N_FLEET, CHAIN * cfg.block_len
+    raw = FLEET_INPUT[cfg.oqpsk][:, :(cut + more) * span]
+    if raw.shape[1] < (cut + more) * span:
+        raw = fleet_iq(cfg, N_FLEET, (cut + more) * span, SEED + 2,
+                       dev).round().clamp(-32768, 32767).to(
+            torch.int16).cpu().numpy()
+    raw = np.concatenate([raw] * groups)
+    # fleet_iq's last stream is noise only: a dead antenna in every group.
+    dead = [g * N_FLEET + N_FLEET - 1 for g in range(groups)]
+    ref = ServingFleet(cfg, n, group_size=N_FLEET, chain_blocks=CHAIN,
+                       ingest="i16", packed_output=True)
+    check(ref.device.type == "cuda", f"({tag}) the fleet is on {ref.device}")
+    fields = ("sym_i", "sym_q", "valid", "locked_once")
+    outs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        plain = os.path.join(tmp, "plain.npz")
+        parked = os.path.join(tmp, "parked.npz")
+        for c in range(cut + more):
+            outs.append(ref.process_blocks(raw[:, c * span:(c + 1) * span]))
+            if c + 1 == cut:
+                save_serving_checkpoint(plain, ref)
+        final = [leaves(f.carry) for f in ref.groups]
+        write_parked_form(plain, parked, dead)
+        for path in (plain, parked):
+            missing = jax_fields_missing(path)
+            check(not missing, f"({tag}) {os.path.basename(path)} lacks "
+                  f"fields the JAX package's loader reads: {missing[:8]}")
+        with np.load(plain) as a, np.load(parked) as b:
+            meta = json.loads(bytes(b["meta"].tobytes()).decode())
+            entries = [list(g["parked"]) for g in meta["groups"]]
+            check(entries == [[str(N_FLEET - 1)]] * groups,
+                  f"({tag}) parked entries {entries}")
+            moved = all(
+                np.array_equal(b[f"g{g}_carry_p_phase"][N_FLEET - 1],
+                               b[f"g{g}_carry_p_phase"][0])
+                and np.array_equal(b[f"g{g}_parked_{N_FLEET - 1}_carry_"
+                                     f"p_phase"],
+                                   a[f"g{g}_carry_p_phase"][N_FLEET - 1])
+                for g in range(groups))
+            check(moved, f"({tag}) the parked form does not hold the dead "
+                  f"antennas' carries apart from a donor's copy on their lanes")
+        for name, path in (("plain", plain), ("parked form", parked)):
+            fleet = load_serving_checkpoint(path)
+            check(fleet.device.type == "cuda" and all(
+                f.parked_streams().size == 0 for f in fleet.groups),
+                f"({tag}) {name}: on {fleet.device}, parked streams left")
+            for c in range(cut, cut + more):
+                got = fleet.process_blocks(raw[:, c * span:(c + 1) * span])
+                for k in fields:
+                    check(np.array_equal(getattr(got, k),
+                                         getattr(outs[c], k)),
+                          f"({tag}) {name}: chain {c} {k} differs from the "
+                          f"uninterrupted run")
+            for g, f in enumerate(fleet.groups):
+                after = leaves(f.carry)
+                for k in after:
+                    check(np.array_equal(after[k], final[g][k]),
+                          f"({tag}) {name}: group {g} carry {k} differs")
+            check(all(len(fleet.parked_output(s)["valid"]) == 0
+                      for s in dead), f"({tag}) {name}: deferred rows")
+    locked = sum(int(f.telemetry["locked_streams"]) for f in ref.groups)
+    say(f"({tag}) ServingFleet {n} streams in {groups} group(s) of {N_FLEET} "
+        f"x {CHAIN} blocks (i16 in, int8 out), dead antennas {dead}: saved "
+        f"after chain {cut}, the file and its JAX parked form (dead antennas "
+        f"parked) hold every field of the JAX loaders; each resumed on the "
+        f"card for {more} chain(s): outputs and carries bitwise equal to the "
+        f"uninterrupted run, no stream parked, no row deferred; "
+        f"{locked}/{n} locked at the end, on {card}")
 
 
 def smoke_mesh() -> list:
@@ -1371,28 +1469,35 @@ def kernel(mode: dict):
     return getattr(kb, mode["name"])
 
 
+def drive(tag: str, mode: dict, other: dict, phase, *args) -> int:
+    """Drive one path, phase(*args), with both kernels' launch counts and
+    the host replay count set to 0 just before it and read just after: its
+    own kernel must have launched, the other not, no block replayed.
+    Returns its kernel's launches."""
+    from meteor_demod_tpu_torch.demod.pipeline import StreamDemodulator
+    kernel(mode).launches = kernel(other).launches = 0
+    StreamDemodulator.replayed_blocks = 0
+    timed(tag, phase, *args)
+    launches = kernel(mode).launches
+    check(launches > 0, f"({tag}) the {mode['name']} path never launched "
+          f"its kernel")
+    check(kernel(other).launches == 0,
+          f"({tag}) the {mode['name']} path launched {other['name']}")
+    check(StreamDemodulator.replayed_blocks == 0,
+          f"({tag}) blocks were replayed on the host")
+    return launches
+
+
 def main_path(cfg, dev, smi: str, mode: dict, other: dict) -> int:
     """Drive one mode's main paths (fleet loop, CLI, fleet driver and its
-    checkpoint, turbo on a file, turbo on stdin), each with the launch and replay counts set to 0 just before
-    it and read just after; return the sum of its kernel's launches."""
-    from meteor_demod_tpu_torch.demod.pipeline import StreamDemodulator
+    checkpoint, turbo on a file, turbo on stdin), each through drive();
+    return the sum of its kernel's launches."""
     suffix = "-oq" if cfg.oqpsk else ""
-    total = 0
-    for phase, tag in ((phase_c, "c"), (phase_d, "d"), (phase_ef, "e"),
-                       (phase_h, "h"), (phase_i, "i")):
-        kernel(mode).launches = kernel(other).launches = 0
-        StreamDemodulator.replayed_blocks = 0
-        timed(tag + suffix, phase, cfg, dev, smi, tag + suffix)
-        launches = kernel(mode).launches
-        check(launches > 0, f"({tag + suffix}) the {mode['name']} path never "
-              f"launched its kernel")
-        check(kernel(other).launches == 0,
-              f"({tag + suffix}) the {mode['name']} path launched "
-              f"{other['name']}")
-        check(StreamDemodulator.replayed_blocks == 0,
-              f"({tag + suffix}) blocks were replayed on the host")
-        total += launches
-    return total
+    return sum(drive(tag + suffix, mode, other, phase, cfg, dev, smi,
+                     tag + suffix)
+               for phase, tag in ((phase_c, "c"), (phase_d, "d"),
+                                  (phase_ef, "e"), (phase_h, "h"),
+                                  (phase_i, "i")))
 
 
 def main() -> int:
@@ -1436,23 +1541,17 @@ def main() -> int:
     # (j), (k) and (l) are QPSK paths of their own, read like the others;
     # (j)'s 2-process fleet's launches are the workers' and are checked
     # from their files.
-    from meteor_demod_tpu_torch.demod.pipeline import StreamDemodulator
     for phase, tag in ((phase_j, "j"), (phase_j_streams, "j-streams"),
                        (phase_k, "k"), (phase_l, "l")):
-        kernel(MODES["qpsk"]).launches = kernel(MODES["oqpsk"]).launches = 0
-        StreamDemodulator.replayed_blocks = 0
-        timed(tag, phase, cfgs["qpsk"], dev, smi)
-        check(StreamDemodulator.replayed_blocks == 0,
-              f"({tag}) blocks were replayed on the host")
-        check(kernel(MODES["oqpsk"]).launches == 0,
-              f"({tag}) launched the OQPSK kernel")
-        check(kernel(MODES["qpsk"]).launches > 0,
-              f"({tag}) never launched its kernel")
-        rec["qpsk"]["launches"] += kernel(MODES["qpsk"]).launches
+        rec["qpsk"]["launches"] += drive(tag, MODES["qpsk"], MODES["oqpsk"],
+                                         phase, cfgs["qpsk"], dev, smi)
     timed("g", phase_g, smi)
     bench = timed("m", phase_m, card)
     for m in ("qpsk", "oqpsk"):
         rec[m]["launches"] += bench[MODES[m]["name"]]
+    for m, other, tag in (("qpsk", "oqpsk", "n"), ("oqpsk", "qpsk", "n-oq")):
+        rec[m]["launches"] += drive(tag, MODES[m], MODES[other], phase_n,
+                                    cfgs[m], dev, smi, tag)
 
     say(json.dumps({"kernels": [{
         "name": MODES[m]["name"], "route": "cuda", "source": KERNEL_SOURCE,

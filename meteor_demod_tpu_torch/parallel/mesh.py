@@ -33,8 +33,13 @@ Left out of the JAX package's mesh.py on purpose, three TPU-era policies:
 - tau0-banded groups (`banded_cfg`, `use_banded`): window economy of the
   TPU kernel.
 
-So there are no `park*` constructor arguments, and a checkpoint that holds
-parked streams is refused (io/checkpoint.py).
+So there are no `park*` constructor arguments. Their saved state is read and
+written all the same, so that a fleet moves between the two packages in both
+directions (io/checkpoint.py): a parked stream of a JAX capture goes back
+onto its lane at load, as the JAX package's unpark splice would put it, and
+its deferred rows are delivered through parked_output; the policy parameters
+(`jax_policy`) are written back as they were read, at the JAX constructor's
+defaults for a fleet made here, and its counters are written as zeros.
 """
 
 from __future__ import annotations
@@ -56,8 +61,54 @@ from ..demod.state import (CARRY_FIELDS, BlockOutput, DemodCarry,
                            carry_to_numpy)
 from ..dsp.fir import f32_to_iq, iq_to_f32
 from ..utils import mesh_devices, select_device, to_device, to_host_async
+from .serialize import ROW_KEYS, pack_rows, unpack_rows
 
 INGESTS = {"f32": np.float32, "i16": np.int16, "u8": np.uint8}
+
+# The JAX package's backend names; its captures name one of them.
+JAX_BACKENDS = ("auto", "scan", "pallas")
+# The JAX FleetDemodulator's policy parameters, which this port keeps only to
+# write them back (see the module docstring).
+JAX_POLICY = ("axis_name", "backend", "park", "park_after", "unpark_after",
+              "park_max", "flap_park", "banded_cfg")
+
+
+def jax_policy_defaults(n_streams: int) -> dict:
+    """The JAX FleetDemodulator's policy parameters at its constructor's
+    defaults (meteor_demod_tpu/parallel/mesh.py FleetDemodulator.__init__)."""
+    return dict(axis_name="streams", backend="auto", park=True, park_after=6,
+                unpark_after=2, park_max=max(1, n_streams // 16), flap_park=6,
+                banded_cfg=None)
+
+
+def jax_policy_of(meta: dict, n_streams: int) -> dict:
+    """The policy parameters of a fleet capture of either package; those it
+    lacks (a capture of this port before it wrote them) at the defaults."""
+    pol = jax_policy_defaults(n_streams)
+    pol.update({k: meta[k] for k in JAX_POLICY if k in meta})
+    if pol["backend"] not in JAX_BACKENDS:
+        pol["backend"] = "auto"
+    return pol
+
+
+def deliver_rows(rows: list, packed: bool) -> dict:
+    """Deferred symbol rows (float32 sym_re / sym_im, int32 valid /
+    locked_once: what the JAX package's host program wrote) -> one dict of
+    their concatenation, the JAX parked_output's result. With `packed`,
+    sym_re and sym_im are int8, the .s byte values (pipeline.quantize, the
+    math the JAX serving host quantizes them with). No rows: empty arrays of
+    the JAX's dtypes."""
+    if not rows:
+        z = np.zeros(0, np.float32)
+        return dict(sym_re=z, sym_im=z, valid=np.zeros(0, np.int32),
+                    locked_once=np.zeros(0, np.int32))
+    out = {k: np.concatenate([np.asarray(r[k]) for r in rows])
+           for k in ROW_KEYS}
+    if packed:
+        for k in ("sym_re", "sym_im"):
+            out[k] = quantize(out[k].astype(np.float32)).astype(np.int8)
+    return out
+
 
 
 def make_fleet_demod(cfg: DemodConfig, n_streams: int, device=None,
@@ -305,6 +356,11 @@ class FleetDemodulator:
         # fleet then has StreamDemodulator's always-exact contract.
         self.recover_flagged = recover_flagged
         self.recovered_streams = 0
+        # The JAX package's policy parameters (written back by state_dict)
+        # and the deferred rows of a loaded JAX capture's parked and retired
+        # streams, by lane, until parked_output drains them.
+        self.jax_policy = jax_policy_defaults(n_streams)
+        self._deferred_rows: dict[int, list] = {}
 
     @property
     def carry(self) -> DemodCarry:
@@ -534,6 +590,32 @@ class FleetDemodulator:
             return np.zeros(0, dtype=np.int64)
         return np.nonzero(self.stream_flags)[0]
 
+    # -- the JAX package's parking interface ---------------------------------
+    #
+    # No stream parks here (the module docstring). These keep the JAX
+    # FleetDemodulator's calls working for a caller that moves between the
+    # packages, and deliver the rows a loaded JAX capture deferred.
+
+    def parked_streams(self) -> np.ndarray:
+        """Indices of parked streams: always none; a parked stream of a
+        loaded JAX capture is back on its lane."""
+        return np.zeros(0, dtype=np.int64)
+
+    def parked_output(self, i: int) -> dict:
+        """Drain stream i's deferred rows: those a loaded JAX capture held
+        for it (its retired rows, then its parked rows), once, as
+        deliver_rows gives them; after that, empty arrays. The lane's own
+        rows come out of process_blocks like every other lane's."""
+        return deliver_rows(self.take_deferred(i), self.packed_output)
+
+    def take_deferred(self, i: int) -> list:
+        """Pop stream i's deferred rows as stored (float32 symbols)."""
+        return self._deferred_rows.pop(int(i), [])
+
+    def wait_parked_drained(self, timeout_s: float = 60.0) -> None:
+        """The JAX package's wait for its park worker. Nothing is parked
+        here, so it returns at once."""
+
     # -- checkpoint state (io/checkpoint.py wraps these in .npz files) ------
     #
     # The serialization mirror lives here, next to the state it mirrors: a
@@ -544,27 +626,43 @@ class FleetDemodulator:
 
     def state_dict(self) -> tuple[dict, dict]:
         """(json-able meta, numpy arrays) capturing this fleet exactly, in
-        the JAX package's fleet layout less its parked, retired and banded
-        fields. Does not change the fleet."""
-        arrays = {f"carry_{k}": v for k, v in
-                  self._shards.carry_to_numpy(self._carries).items()}
+        the JAX package's fleet layout: every field its restore_state reads.
+        Its policy parameters are jax_policy; its parking, flap and program
+        switch counters are zeros, as in a fleet that never parked; rows not
+        yet drained by parked_output go in as a retired stream's. Does not
+        change the fleet."""
+        leaves = self._shards.carry_to_numpy(self._carries)
+        arrays = {f"carry_{k}": v for k, v in leaves.items()}
         arrays["rescue_streak"] = self._rescue_streak.copy()
         if self.stream_flags is not None:
             arrays["stream_flags"] = np.array(self.stream_flags)
+        arrays["unlock_streak"] = np.zeros(self.n_streams, np.int64)
+        arrays["flap_count"] = np.zeros(self.n_streams, np.int64)
+        # The JAX fleet's per-lane readbacks of its last tick, from the
+        # carry.
+        arrays["last_locked_vec"] = leaves["locked"].copy()
+        arrays["lonce_vec"] = leaves["locked_once"].copy()
+        arrays["agc_vec"] = leaves["agc_gain"].copy()
+        for i, rows in self._deferred_rows.items():
+            pack_rows(rows, arrays, f"retired_{i}_rows_")
         meta = dict(
             cfg=dataclasses.asdict(self.cfg),
             n_streams=self.n_streams,
-            backend=self._backend,
+            **self.jax_policy,
+            port_backend=self._backend,
             recover_flagged=self.recover_flagged,
             telemetry_every=self.telemetry_every,
             sweep_rescue_s=self.sweep_rescue_s,
             chain_blocks=self.chain_blocks,
             ingest=self.ingest,
             packed_output=self.packed_output,
-            block_idx=self._block_idx,
+            tick_idx=0, block_idx=self._block_idx,
+            active_locked=None, wide_latch=False, use_banded=False,
             recovered_streams=int(self.recovered_streams),
             telemetry=(None if self.telemetry is None else
-                       {k: float(v) for k, v in self.telemetry.items()}))
+                       {k: float(v) for k, v in self.telemetry.items()}),
+            parked={},
+            retired=sorted(self._deferred_rows))
         return meta, arrays
 
     def restore_state(self, meta: dict, z, prefix: str = "") -> None:
@@ -572,15 +670,15 @@ class FleetDemodulator:
         package (`z` is any mapping of the arrays with key list `z.files`,
         e.g. an open npz). The fleet must have been constructed with the
         same cfg and n_streams; policy parameters are re-applied from meta
-        so a default-constructed fleet becomes exact. Parking, program
-        switch and banding fields of a JAX capture are ignored; a capture
-        that holds parked streams is refused."""
+        so a default-constructed fleet becomes exact. A JAX capture's
+        parked streams go back onto their lanes (_unpark_saved), and their
+        deferred rows and those of its retired streams wait for
+        parked_output. The JAX policy parameters are kept for state_dict;
+        its counters, program switch and banding are ignored. A capture that
+        cannot be resumed exactly raises ValueError naming why (a field it
+        lacks raises KeyError, which the loaders of io/checkpoint.py turn
+        into ValueError)."""
         p = prefix
-        if meta.get("parked") or meta.get("retired"):
-            raise ValueError(
-                "the checkpoint holds parked streams (host-side carries and "
-                "deferred symbols); this port has no straggler parking and "
-                "cannot resume them")
         self.recover_flagged = bool(meta["recover_flagged"])
         self.telemetry_every = int(meta["telemetry_every"])
         new_chain = int(meta.get("chain_blocks", 1))
@@ -594,17 +692,59 @@ class FleetDemodulator:
             self.packed_output = new_packed
             self._fns = {}
         self.set_sweep_rescue(float(meta.get("sweep_rescue_s", 0.0)))
-        leaves = {k: np.asarray(z[f"{p}carry_{k}"]) for k in CARRY_FIELDS}
+        self.jax_policy = jax_policy_of(meta, self.n_streams)
+        leaves = {k: np.array(z[f"{p}carry_{k}"]) for k in CARRY_FIELDS}
         if leaves["t_phase"].shape != (self.n_streams,):
             raise ValueError(
                 f"checkpoint carry has {leaves['t_phase'].shape} "
                 f"streams, the fleet {self.n_streams}")
-        self._carries = self._shards.carry_from_numpy(leaves)
         if f"{p}rescue_streak" in z.files:
             self._rescue_streak = np.asarray(z[f"{p}rescue_streak"]).copy()
+        self._deferred_rows = {}
+        for i in meta.get("retired", ()):
+            rows = unpack_rows(z, f"{p}retired_{int(i)}_rows_")
+            if rows:
+                self._deferred_rows[int(i)] = rows
+        for i, pm in meta.get("parked", {}).items():
+            self._unpark_saved(int(i), pm, z, p, leaves)
+        self._carries = self._shards.carry_from_numpy(leaves)
         if f"{p}stream_flags" in z.files:
             self.stream_flags = np.asarray(z[f"{p}stream_flags"]).copy()
         if meta["telemetry"] is not None:
             self.telemetry = _telemetry_values(meta["telemetry"])
         self._block_idx = int(meta["block_idx"])
         self.recovered_streams = int(meta["recovered_streams"])
+
+    def _unpark_saved(self, i: int, pm: dict, z, p: str,
+                      leaves: dict) -> None:
+        """Put parked stream i of a JAX capture back on its lane, in
+        `leaves`, as the JAX package's unpark splice would: its exact host
+        carry replaces the lane's (a donor's copy, fed the donor's data);
+        a sweep kick it asked for is applied as the JAX park worker applies
+        it before its next block; its rescue count goes on from the blocks
+        fed since its last kick; its deferred rows queue after any retired
+        ones."""
+        if not 0 <= i < self.n_streams:
+            raise ValueError(f"parked stream {i} is not a lane of "
+                             f"{self.n_streams}")
+        if int(pm["blocks_done"]) != int(pm["blocks_fed"]):
+            raise ValueError(
+                f"parked stream {i}: blocks_done {pm['blocks_done']} != "
+                f"blocks_fed {pm['blocks_fed']}, so its host carry is not "
+                f"the state after its last block")
+        for k in CARRY_FIELDS:
+            key = f"{p}parked_{i}_carry_{k}"
+            v = np.asarray(z[key])
+            if v.shape != leaves[k].shape[1:]:
+                raise ValueError(f"{key} has shape {v.shape}, a lane's "
+                                 f"{leaves[k].shape[1:]}")
+            leaves[k][i] = v
+        if pm.get("kick_wanted", False) and not pm["locked"]:
+            leaves["p_freq"][i] = np.float32(self.cfg.pll_fmax)
+            leaves["updown"][i] = np.float32(-1.0)
+        since_kick = int(pm["blocks_fed"]) - int(pm.get("last_kick_fed", 0))
+        self._rescue_streak[i] = since_kick // (self.telemetry_every
+                                                * self.chain_blocks)
+        rows = unpack_rows(z, f"{p}parked_{i}_rows_")
+        if rows:
+            self._deferred_rows.setdefault(i, []).extend(rows)

@@ -181,13 +181,21 @@ class MultiHostFleet:
 
     def state_dict(self) -> tuple[dict, dict]:
         """(json-able meta, numpy arrays) of THIS PROCESS's part: its local
-        fleet's state and the fleet-global telemetry. Every process saves
-        its own file at the same block; a restore needs the same topology
-        (process count, rank and local stream count)."""
+        fleet's state and the fleet-global telemetry. The meta is the JAX
+        MultiHostFleet's flat one (so its load_multihost_checkpoint resumes
+        the file at the same topology), with this port's rank and the local
+        fleet's meta beside it. Every process saves its own file at the
+        same block; a restore needs the same topology (process count, rank
+        and local stream count)."""
         fm, arrays = self._fleet.state_dict()
+        if self.local_stream_flags is not None:
+            arrays["local_stream_flags"] = np.asarray(
+                self.local_stream_flags)
         meta = dict(
             cfg=fm["cfg"], streams_per_device=self.spd,
-            backend=fm["backend"], telemetry_every=self.telemetry_every,
+            axis_name=fm["axis_name"], backend=fm["backend"],
+            port_backend=fm["port_backend"],
+            telemetry_every=self.telemetry_every,
             recover_flagged=self.recover_flagged,
             block_idx=fm["block_idx"],
             recovered_streams=fm["recovered_streams"],
@@ -198,17 +206,35 @@ class MultiHostFleet:
         return meta, arrays
 
     def restore_state(self, meta: dict, z, prefix: str = "") -> None:
-        """Overwrite this process's state from its state_dict capture; a
-        capture of another topology is refused."""
-        saved = (meta["n_local"], meta["n_streams"], meta.get("rank", 0))
+        """Overwrite this process's state from its state_dict capture, or
+        from a JAX MultiHostFleet's (flat meta: no local fleet's meta, no
+        rank, which its loader does not check either); a capture of another
+        topology is refused."""
+        saved = (meta["n_local"], meta["n_streams"],
+                 meta.get("rank", self.rank))
         if saved != (self.n_local, self.n_streams, self.rank):
             raise ValueError(
                 f"checkpoint topology (n_local, n_streams, rank) {saved} "
                 f"does not match this job's "
                 f"{(self.n_local, self.n_streams, self.rank)}")
         self.recover_flagged = bool(meta["recover_flagged"])
-        self._fleet.restore_state(meta["local"], z, prefix)
+        local = meta.get("local")
+        if local is None:
+            # The local fleet of a JAX capture: its rows, counters and
+            # flags; its own telemetry is made on the next tick.
+            local = dict(cfg=meta["cfg"], n_streams=self.n_local,
+                         axis_name=meta["axis_name"],
+                         backend=meta.get("backend", "auto"),
+                         recover_flagged=False,
+                         telemetry_every=meta["telemetry_every"],
+                         block_idx=meta["block_idx"],
+                         recovered_streams=meta["recovered_streams"],
+                         telemetry=None)
+        self._fleet.restore_state(local, z, prefix)
         self._fleet.recover_flagged = False
+        if f"{prefix}local_stream_flags" in z.files:
+            self._fleet.stream_flags = np.asarray(
+                z[f"{prefix}local_stream_flags"]).copy()
+        self.local_stream_flags = self._fleet.stream_flags
         self.telemetry = (None if meta["telemetry"] is None else
                           _telemetry_values(meta["telemetry"]))
-

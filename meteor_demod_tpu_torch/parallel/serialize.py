@@ -9,11 +9,11 @@ from __future__ import annotations
 
 import numpy as np
 
-_ROW_KEYS = ("sym_re", "sym_im", "valid", "locked_once")
+ROW_KEYS = ("sym_re", "sym_im", "valid", "locked_once")
 
 
 def pack_rows(rows: list, arrays: dict, prefix: str) -> int:
-    for k in _ROW_KEYS:
+    for k in ROW_KEYS:
         arrays[f"{prefix}{k}"] = (
             np.concatenate([np.asarray(r[k]) for r in rows]) if rows
             else np.zeros(0, np.float32 if k.startswith("sym")
@@ -24,4 +24,4 @@ def pack_rows(rows: list, arrays: dict, prefix: str) -> int:
 def unpack_rows(z, prefix: str) -> list:
     if f"{prefix}valid" not in z.files or not len(z[f"{prefix}valid"]):
         return []
-    return [{k: np.asarray(z[f"{prefix}{k}"]) for k in _ROW_KEYS}]
+    return [{k: np.asarray(z[f"{prefix}{k}"]) for k in ROW_KEYS}]

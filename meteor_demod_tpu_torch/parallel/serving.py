@@ -8,9 +8,13 @@ return in the caller's stream order.
 
 The JAX package's ServingFleet also sorts streams by their predicted
 first-fire tick into tau0-banded groups (predict_tau0, _sort_groups, `band`)
-and drains parked streams' deferred rows. Both serve the TPU kernel's
-candidate windows and the parking policy, which this port leaves out
-(parallel/mesh.py), so the assignment here never changes.
+and drains parked streams' deferred rows into a stream-keyed store before it
+renumbers them. Sorting serves the TPU kernel's candidate windows, which this
+port leaves out (parallel/mesh.py), so the assignment here never changes by
+itself; a loaded JAX capture's assignment (group_of / lane_of, sorted or not)
+is kept, and so are its stream-keyed deferred rows, delivered through
+parked_output. `band`, `sorted_once` and `_resort_wanted` are the JAX fields,
+kept only to be written back (io/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import numpy as np
 
 from ..config import DemodConfig
 from ..utils import mesh_devices
-from .mesh import FleetDemodulator
+from .mesh import FleetDemodulator, deliver_rows
 
 
 class ServingFleet:
@@ -48,6 +52,13 @@ class ServingFleet:
         # assign[stream] = (group, lane), kept as flat arrays.
         self._group_of = np.repeat(np.arange(self.n_groups), group_size)
         self._lane_of = np.tile(np.arange(group_size), self.n_groups)
+        # The JAX ServingFleet's banding fields, at its defaults; a serving
+        # host sets `band` from its flag.
+        self.band = 8
+        self.sorted_once = False
+        self._resort_wanted = False
+        # A loaded JAX capture's deferred rows, keyed by caller stream.
+        self._deferred: dict[int, list] = {}
 
     def _slots(self) -> np.ndarray:
         """Flat slot index (group*group_size + lane) per caller stream."""
@@ -76,6 +87,15 @@ class ServingFleet:
         cols = (np.concatenate(col)
                 for col in zip(*(dataclasses.astuple(o) for o in outs)))
         return type(outs[0])(*(c if identity else c[slots] for c in cols))
+
+    def parked_output(self, stream: int) -> dict:
+        """Drain the deferred rows of caller stream `stream` (see
+        FleetDemodulator.parked_output): those the capture kept by stream,
+        then those its group kept by lane, once."""
+        g, lane = int(self._group_of[stream]), int(self._lane_of[stream])
+        rows = (self._deferred.pop(int(stream), [])
+                + self.groups[g].take_deferred(lane))
+        return deliver_rows(rows, self.groups[g].packed_output)
 
     def assignment(self) -> list[tuple[int, int]]:
         """(group, lane) per stream in caller order."""

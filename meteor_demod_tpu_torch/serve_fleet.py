@@ -16,7 +16,15 @@ This program is the operational glue a deployment needs around it:
   demodulation continues bit-identically. Writer ring state rides in a side
   <checkpoint>.writers.npz and the .s files are truncated back to the
   checkpointed byte counts on resume, so the restarted host's byte stream is
-  exactly the uninterrupted one.
+  exactly the uninterrupted one;
+- hosts of both packages resume each other's checkpoints (the layouts of the
+  checkpoint and of its side file are the JAX package's): a stream the JAX
+  host had parked goes back onto its lane at load, and the symbols it
+  deferred are written into its .s before its next rows and before each
+  save, as the JAX host writes them. --band and --park-after-s are the JAX
+  host's flags, recorded in the checkpoint so that a JAX host resuming it
+  bands and parks as it would have; every lane runs on the card here, so
+  neither changes this host's output.
 
 Tail of a stream: a final chain that the input fills only in part is padded
 with the format's zero level and demodulated whole, and an input that ends
@@ -186,6 +194,11 @@ def _parse_args(argv) -> argparse.Namespace:
                     help="blocks per device dispatch (higher amortizes the "
                          "host round trip, lower tightens the policy and "
                          "status tick)")
+    ap.add_argument("--band", type=int, default=8,
+                    help="the JAX host's tau0 band, recorded in the "
+                         "checkpoint for a JAX host that resumes it; this "
+                         "host runs every lane on the card, so it does not "
+                         "change the output")
     ap.add_argument("--out-dir", required=True)
     ap.add_argument("--checkpoint", default=None,
                     help=".npz path; saved periodically and on SIGINT/"
@@ -197,6 +210,12 @@ def _parse_args(argv) -> argparse.Namespace:
                     help="resume from --checkpoint (inputs are seeked to "
                          "the checkpoint's chain index; .s files appended)")
     ap.add_argument("--status-every", type=int, default=64)
+    ap.add_argument("--park-after-s", type=float, default=5.0,
+                    help="the JAX host's parking delay (seconds of signal a "
+                         "stream may stay unlocked while peers are locked), "
+                         "recorded in the checkpoint for a JAX host that "
+                         "resumes it; this host runs every lane on the card "
+                         "and parks none, so it does not change the output")
     ap.add_argument("--sweep-rescue", type=float, default=0.0,
                     help="seconds of unlocked signal before a stream's "
                          "sweep is kicked onto the downward escape pass "
@@ -222,6 +241,12 @@ def _parse_args(argv) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def _park_ticks(args, cfg: DemodConfig) -> int:
+    """--park-after-s in the JAX fleet's unit, policy ticks of one chain."""
+    return max(1, round(args.park_after_s * cfg.samplerate
+                        / (args.chain * cfg.block_len)))
+
+
 def _resume(args, cfg: DemodConfig, n_streams: int, ingest: str, mesh):
     """Load --checkpoint and refuse every mismatch with this run before
     any output is touched. Returns the fleet."""
@@ -245,16 +270,21 @@ def _resume(args, cfg: DemodConfig, n_streams: int, ingest: str, mesh):
         raise SystemExit(
             f"checkpoint ingest {fleet.groups[0].ingest!r} != this "
             f"run's {ingest!r}; pass the matching --ingest")
+    if not fleet.groups[0].packed_output:
+        raise SystemExit("checkpoint fleet does not quantize on the device "
+                         "(packed_output); it is not a serving host's")
     if fleet.groups[0].chain_blocks != args.chain:
         raise SystemExit(
             f"checkpoint was saved with --chain "
             f"{fleet.groups[0].chain_blocks}, this run uses "
             f"--chain {args.chain} — the chain index and input "
             "seeks are in chain units; pass the matching --chain")
-    # This run's policy flags win over the checkpointed values: an operator
-    # restarting with --sweep-rescue expects it to apply.
+    # This run's policy flags win over the checkpointed values (the band
+    # stays the checkpoint's, as in the JAX host): an operator restarting
+    # with --sweep-rescue expects it to apply.
     for f in fleet.groups:
         f.set_sweep_rescue(args.sweep_rescue)
+        f.jax_policy["park_after"] = _park_ticks(args, cfg)
     return fleet
 
 
@@ -294,17 +324,19 @@ def _restore_writers(wpath: str, start_block: int, writers, files) -> None:
         f.seek(writers[i].bytes_out)
 
 
-def _write_rows(writer: SymbolWriter, outs, i: int) -> None:
-    """Valid-gate stream i's rows of a PackedOutput (already the .s byte
-    values, quantized on the device) into its lock-gated writer."""
-    v = outs.valid[i].astype(bool)
+def _write_rows(writer: SymbolWriter, sym_i, sym_q, valid,
+                locked_once) -> None:
+    """Valid-gate one stream's int8 rows (already the .s byte values: a
+    PackedOutput's, quantized on the device, or parked_output's of a packed
+    fleet) into its lock-gated writer."""
+    v = np.asarray(valid).astype(bool)
     n = int(v.sum())
     if not n:
         return
     iq = np.empty(2 * n, np.int8)
-    iq[0::2] = outs.sym_i[i][v]
-    iq[1::2] = outs.sym_q[i][v]
-    writer.feed(iq, outs.locked_once[i][v].astype(np.int32))
+    iq[0::2] = np.asarray(sym_i)[v]
+    iq[1::2] = np.asarray(sym_q)[v]
+    writer.feed(iq, np.asarray(locked_once)[v].astype(np.int32))
 
 
 def main(argv=None) -> int:
@@ -364,6 +396,9 @@ def main(argv=None) -> int:
                              mesh=mesh, sweep_rescue_s=args.sweep_rescue,
                              chain_blocks=args.chain, ingest=ingest,
                              packed_output=True)
+        fleet.band = args.band
+        for f in fleet.groups:
+            f.jax_policy["park_after"] = _park_ticks(args, cfg)
     print(f"serving {n_streams} streams on {', '.join(map(str, mesh))}",
           flush=True)
 
@@ -384,9 +419,18 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGINT, _sig)
     signal.signal(signal.SIGTERM, _sig)
 
+    def _drain_stream(i: int) -> None:
+        """Write stream i's deferred rows (those of a stream a loaded JAX
+        checkpoint had parked) into its writer."""
+        rows = fleet.parked_output(i)
+        _write_rows(writers[i], rows["sym_re"], rows["sym_im"],
+                    rows["valid"], rows["locked_once"])
+
     def _save() -> None:
         if not args.checkpoint:
             return
+        for i in range(n_streams):
+            _drain_stream(i)          # deferred rows go to disk, not .npz
         for f in files:
             f.flush()
         # Writer ring state rides in a side file so a resumed host
@@ -438,8 +482,10 @@ def main(argv=None) -> int:
             mid_chain = True
             outs = fleet.process_blocks(batch)
             for i in range(n_streams):
+                _drain_stream(i)
                 if not was_done[i]:
-                    _write_rows(writers[i], outs, i)
+                    _write_rows(writers[i], outs.sym_i[i], outs.sym_q[i],
+                                outs.valid[i], outs.locked_once[i])
             mid_chain = False
             blocks += 1
             if args.checkpoint and blocks % args.checkpoint_every == 0:
@@ -458,6 +504,8 @@ def main(argv=None) -> int:
                   flush=True)
         else:
             _save()
+        for i in range(n_streams):
+            _drain_stream(i)
         for w in writers:
             w.flush_partial()
         for f in files:

@@ -2,8 +2,9 @@
 --checkpoint, on the CPU: a resumed demodulator continues bit-identically to
 the uninterrupted one (stream, fleet, serving), a save changes nothing, the
 loaders refuse the wrong kind of file, and a checkpoint the JAX package wrote
-(stream, or fleet with no parked stream) resumes in the port with the JAX
-run's decisions.
+(stream, or fleet, also with a parked stream) resumes in the port with the
+JAX run's decisions. tests/test_torch_checkpoint_interop.py moves every kind
+both ways.
 
 Mirrors tests/test_io_cli.py (checkpoint section) and
 tests/test_fleet_checkpoint.py at a small size. Against the JAX package:
@@ -32,7 +33,8 @@ from meteor_demod_tpu_torch.demod.pipeline import StreamDemodulator
 from meteor_demod_tpu_torch.demod.state import carry_to_numpy
 from meteor_demod_tpu_torch.io.checkpoint import (
     load_checkpoint, load_fleet_checkpoint, load_serving_checkpoint,
-    save_checkpoint, save_fleet_checkpoint, save_serving_checkpoint)
+    save_checkpoint, save_fleet_checkpoint, save_serving_checkpoint,
+    write_parked_form)
 from meteor_demod_tpu_torch.parallel.mesh import FleetDemodulator
 from meteor_demod_tpu_torch.parallel.serving import ServingFleet
 
@@ -196,12 +198,28 @@ def _jax_fleet(jcfg, **kw):
                     backend="scan", park=False, **kw)
 
 
+def _hold_jax(outs, ref_outs, first):
+    """The decision contract against the JAX run's chains from `first`."""
+    for c, (got, want) in enumerate(zip(outs, ref_outs)):
+        for k in ("valid", "locked_once"):
+            np.testing.assert_array_equal(getattr(got, k),
+                                          np.asarray(getattr(want, k)),
+                                          err_msg=f"chain {first + c} {k}")
+        v = got.valid.astype(bool)
+        for k in ("sym_re", "sym_im"):
+            np.testing.assert_allclose(
+                getattr(got, k)[v], np.asarray(getattr(want, k))[v],
+                rtol=5e-4, atol=0.05, err_msg=f"chain {first + c} {k}")
+
+
 def test_jax_fleet_checkpoint_resumes_in_port(tmp_path):
     """A fleet checkpoint the JAX package wrote (park=False, chained) loads
-    into the port: parking, program-switch and banding fields are ignored,
-    the backend name becomes the port's default, and the next chains'
-    decisions match the JAX run's. The same file with a parked stream in it
-    is refused."""
+    into the port: program-switch and banding fields are kept only to be
+    written back, the backend name becomes the port's default, and the next
+    chains' decisions match the JAX run's. The same file with a stream
+    parked (the JAX package's layout for a stream at the tick it parks it)
+    resumes too: the stream's host carry goes back onto its lane, and the
+    run is the plain file's, bitwise."""
     jcfg = JaxConfig(samplerate=230400, block_len=L)
     K, n_chains, cut = 2, 6, 4
     data = _fleet_data(N, 16)
@@ -217,31 +235,25 @@ def test_jax_fleet_checkpoint_resumes_in_port(tmp_path):
     assert fleet._backend == "auto" and fleet._block_idx == cut
     # The lock arrives after the resume: the decision is not a constant.
     assert not carry_to_numpy(fleet.carry)["locked_once"].any()
-    for c, (got, want) in enumerate(zip(_run(fleet, data, cut, n_chains),
-                                        ref_outs)):
-        for k in ("valid", "locked_once"):
-            np.testing.assert_array_equal(getattr(got, k),
-                                          np.asarray(getattr(want, k)),
-                                          err_msg=f"chain {cut + c} {k}")
-        v = got.valid.astype(bool)
-        for k in ("sym_re", "sym_im"):
-            np.testing.assert_allclose(
-                getattr(got, k)[v], np.asarray(getattr(want, k))[v],
-                rtol=5e-4, atol=0.05, err_msg=f"chain {cut + c} {k}")
+    outs = _run(fleet, data, cut, n_chains)
+    _hold_jax(outs, ref_outs, cut)
     assert carry_to_numpy(fleet.carry)["locked_once"].all()
     assert int(fleet.telemetry["locked_streams"]) == int(
         jf.telemetry["locked_streams"])
 
-    with np.load(path) as z:
-        arrays = {k: z[k] for k in z.files}
-    meta = json.loads(bytes(arrays["meta"].tobytes()).decode())
-    meta["fleet"]["parked"] = {"1": dict(locked=False, locked_streak=0,
-                                         blocks_fed=4, blocks_done=4)}
-    arrays["meta"] = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
     parked = str(tmp_path / "jax_fleet_parked.npz")
-    np.savez(parked, **arrays)
-    with pytest.raises(ValueError, match="parked streams"):
-        load_fleet_checkpoint(parked, "cpu")
+    write_parked_form(path, parked, [1])
+    with np.load(parked) as z:
+        meta = json.loads(bytes(z["meta"].tobytes()).decode())
+        assert list(meta["fleet"]["parked"]) == ["1"]
+        np.testing.assert_array_equal(z["carry_t_phase"][1],
+                                      z["carry_t_phase"][0])
+    again = load_fleet_checkpoint(parked, "cpu")
+    assert again.parked_streams().size == 0
+    again_outs = _run(again, data, cut, n_chains)
+    for c, (got, want) in enumerate(zip(again_outs, outs)):
+        _assert_outs_equal(got, want, f"parked form, chain {cut + c}")
+    _hold_jax(again_outs, ref_outs, cut)
 
 
 # ------------------------------------------------------------------ serving
