@@ -93,9 +93,17 @@ Phases, one line each; any failed check raises and the script exits non-zero:
       blocks of it against one call, bitwise or else within the FIR budget
       (rtol 1e-5, atol 1e-5 max|F|) with the first differing tick printed; a
       2-process MultiHostFleet (this script run twice with --mh-worker,
-      gloo over localhost, cuda:0 each, 64 streams a process x 2 blocks)
-      whose rows are bitwise the single-process fleet's and whose telemetry
-      is the same in both processes; and dryrun_multichip(4).
+      gloo with a rendezvous file, cuda:0 each, 64 streams a process x 2
+      blocks, ended by shutdown_distributed) whose rows are bitwise the
+      single-process fleet's and whose telemetry is the same in both
+      processes, both exiting 0; and dryrun_multichip(4).
+  (j-exit) the exit contract of parallel/multihost.py: EXIT_PAIRS 2-process
+      gloo jobs at once, both ranks on (j)'s first shard (this script run
+      with --exit-worker), each rank joining, taking one MultiHostFleet
+      step of 1 stream (one kernel launch, one all_reduce) and returning;
+      the rank that returns last, and whether it calls shutdown_distributed
+      or leaves it to atexit, vary over the pairs. Every process must exit
+      0 having launched the kernel once.
   (j-streams) the stream contract: the fleet step (make_fleet_demod, (e)'s
       shape, 2 chains of (e)'s input) and a StreamDemodulator (24 blocks
       and a tail of (h)'s recording, fed 8192 samples at a time) queued
@@ -141,7 +149,7 @@ the path's own kernel must have launched, the other kernel not at all, and
 the replay counts must be 0, so that every block came from the card. (The
 serving host of (g) is a process of its own: its launches are not in these
 counts; the bench of (m) is one too, and reports its own section by
-section, each from 0.) Each
+section, each from 0; so are (j-exit)'s workers, which print theirs.) Each
 phase's line is followed by its time. The line before the
 last is the kernels' JSON record, the last line is {"ok": true, ...}.
 
@@ -157,7 +165,6 @@ import filecmp
 import json
 import os
 import re
-import socket
 import subprocess
 import sys
 import tempfile
@@ -178,6 +185,7 @@ SPAN_LANES = 32      # (i): -T 32 on stdin
 MESH_LANES = 104     # (j): turbo's lanes over the shards (a multiple of 8)
 FIR_BLOCKS = 64      # (j): the time-sharded FIR's length in blocks
 MH_BLOCKS = 2        # (j): blocks through the 2-process MultiHostFleet
+EXIT_PAIRS = 4       # (j-exit): 2-process jobs run at once
 # (g): the serving host's fleet. 6 s of signal, not the 10 s of a short pass:
 # synthesizing 254 passes on the host costs ~10 s per second of signal, three
 # times over, and is set-up, not serving.
@@ -1152,22 +1160,18 @@ def smoke_mesh() -> list:
     return [torch.device("cuda", i % n) for i in range(2)]
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def mh_worker(rank: int, port: int, tmp: str, device: str) -> int:
-    """One process of (j)'s 2-process MultiHostFleet: joins the gloo job,
-    runs its half of tmp/data.npy ((streams, blocks, block_len, 2) float32)
-    block by block on `device` and writes its rows, the job's telemetry and
-    its kernel launches to tmp/w<rank>.npz."""
+def mh_worker(rank: int, tmp: str, device: str) -> int:
+    """One process of (j)'s 2-process MultiHostFleet: joins the gloo job at
+    tmp's rendezvous file, runs its half of tmp/data.npy ((streams, blocks,
+    block_len, 2) float32) block by block on `device`, writes its rows, the
+    job's telemetry and its kernel launches to tmp/w<rank>.npz and ends the
+    job."""
     from meteor_demod_tpu_torch.config import DemodConfig
     from meteor_demod_tpu_torch.kernels.block_demod import block_demod
-    from meteor_demod_tpu_torch.parallel.multihost import (MultiHostFleet,
-                                                           init_distributed)
-    init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank,
+    from meteor_demod_tpu_torch.parallel.multihost import (
+        MultiHostFleet, init_distributed, local_init_method,
+        shutdown_distributed)
+    init_distributed(local_init_method(tmp), world_size=2, rank=rank,
                      timeout_s=120)
     data = np.load(os.path.join(tmp, "data.npy"))
     n_streams, n_blocks, L = data.shape[:3]
@@ -1183,6 +1187,34 @@ def mh_worker(rank: int, port: int, tmp: str, device: str) -> int:
              **{k: np.concatenate([getattr(o, k) for o in outs], axis=1)
                 for k in ("sym_re", "sym_im", "valid", "locked_once")},
              **{f"tel_{k}": v for k, v in fleet.telemetry.items()})
+    shutdown_distributed()
+    return 0
+
+
+def exit_worker(rank: int, tmp: str, device: str, last: int,
+                explicit: int) -> int:
+    """One process of a (j-exit) pair: joins the gloo job at tmp's
+    rendezvous file, takes one MultiHostFleet step of 1 stream on `device`
+    and prints its kernel launches; the rank `last` returns 0.2 s after its
+    peer, and ends the job with shutdown_distributed if `explicit`, else
+    at exit."""
+    from meteor_demod_tpu_torch.config import DemodConfig
+    from meteor_demod_tpu_torch.kernels.block_demod import block_demod
+    from meteor_demod_tpu_torch.parallel.multihost import (
+        MultiHostFleet, init_distributed, local_init_method,
+        shutdown_distributed)
+    init_distributed(local_init_method(tmp), world_size=2, rank=rank,
+                     timeout_s=120)
+    cfg = DemodConfig(samplerate=FS, block_len=1024)
+    fleet = MultiHostFleet(cfg, 1, mesh=[device])
+    block_demod.launches = 0
+    fleet.process_local_blocks(np.zeros((1, cfg.block_len), np.complex64))
+    check(fleet.telemetry is not None, f"exit worker {rank}: no telemetry")
+    say(f"exit worker {rank} launches {block_demod.launches}")
+    if rank == last:
+        time.sleep(0.2)
+    if explicit:
+        shutdown_distributed()
     return 0
 
 
@@ -1298,11 +1330,10 @@ def phase_j(cfg, dev, card: str) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         np.save(os.path.join(tmp, "data.npy"),
                 data.reshape(N_FLEET, MH_BLOCKS, L, 2))
-        port = free_port()
         t0 = time.perf_counter()
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--mh-worker",
-             str(rank), str(port), tmp, str(mesh[0])], env=env, cwd=root,
+             str(rank), tmp, str(mesh[0])], env=env, cwd=root,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
             for rank in (0, 1)]
         logs = [p.communicate(timeout=240)[0].decode() for p in procs]
@@ -1347,8 +1378,51 @@ def phase_j(cfg, dev, card: str) -> None:
         f"{mesh[0]} each, {N_FLEET // 2} streams a process x {MH_BLOCKS} "
         f"blocks) "
         f"rows == the single-process fleet's bitwise, telemetry the same in "
-        f"both, {t_mh:.1f} s with start-up; dryrun_multichip(4) ok in "
+        f"both, both exiting 0 after shutdown_distributed, {t_mh:.1f} s with "
+        f"start-up; dryrun_multichip(4) ok in "
         f"{t_dry:.1f} s on {card}")
+
+
+def phase_j_exit(card: str) -> None:
+    """EXIT_PAIRS 2-process jobs at once through exit_worker, every process
+    to exit 0; see the module docstring."""
+    device = str(smoke_mesh()[0])
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    # (rank that returns last, explicit shutdown) of each pair.
+    cases = [(i % 2, i // 2 % 2) for i in range(EXIT_PAIRS)]
+    jobs = []
+    with tempfile.TemporaryDirectory() as top:
+        t0 = time.perf_counter()
+        try:
+            for i, (last, explicit) in enumerate(cases):
+                tmp = os.path.join(top, str(i))
+                os.mkdir(tmp)
+                jobs.append([subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--exit-worker", str(rank), tmp, device, str(last),
+                     str(explicit)], env=env, cwd=root,
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                    for rank in (0, 1)])
+            logs = [[p.communicate(timeout=120)[0].decode() for p in pair]
+                    for pair in jobs]
+        finally:
+            for p in (p for pair in jobs for p in pair if p.poll() is None):
+                p.kill()
+                p.wait()
+        secs = time.perf_counter() - t0
+    for i, (pair, pair_logs) in enumerate(zip(jobs, logs)):
+        for rank, (p, log) in enumerate(zip(pair, pair_logs)):
+            check(p.returncode == 0, f"(j-exit) job {i} {cases[i]} rank "
+                  f"{rank} exit {p.returncode}:\n{log[-3000:]}")
+            check(f"exit worker {rank} launches 1" in log, f"(j-exit) job "
+                  f"{i} rank {rank} did not launch the kernel once:\n"
+                  f"{log[-3000:]}")
+    say(f"(j-exit) {EXIT_PAIRS} 2-process gloo jobs at once on {device} "
+        f"(each rank one MultiHostFleet step, one all_reduce; either rank "
+        f"returning last, shutdown_distributed called or left to atexit): "
+        f"{2 * EXIT_PAIRS} of {2 * EXIT_PAIRS} processes exit 0, each with "
+        f"one kernel launch, {secs:.1f} s with start-up on {card}")
 
 
 # Cycles of torch.cuda._sleep, a spin kernel: ~50 ms at an H100's clock.
@@ -1503,7 +1577,11 @@ def main_path(cfg, dev, smi: str, mode: dict, other: dict) -> int:
 def main() -> int:
     if sys.argv[1:2] == ["--mh-worker"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        return mh_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6])
+        return mh_worker(int(sys.argv[2]), *sys.argv[3:5])
+    if sys.argv[1:2] == ["--exit-worker"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return exit_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4],
+                           *map(int, sys.argv[5:7]))
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA card "
                          "(torch.cuda.is_available() is false)\n")
@@ -1545,6 +1623,8 @@ def main() -> int:
                        (phase_k, "k"), (phase_l, "l")):
         rec["qpsk"]["launches"] += drive(tag, MODES["qpsk"], MODES["oqpsk"],
                                          phase, cfgs["qpsk"], dev, smi)
+    # (j-exit)'s launches are the workers', checked from their output.
+    timed("j-exit", phase_j_exit, card)
     timed("g", phase_g, smi)
     bench = timed("m", phase_m, card)
     for m in ("qpsk", "oqpsk"):

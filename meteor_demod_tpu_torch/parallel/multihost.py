@@ -8,6 +8,11 @@ of a multi-process job; so does this module:
 - `init_distributed` joins the job: torch.distributed.init_process_group
   with the gloo backend and a finite timeout, by env:// discovery
   (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK) unless told otherwise.
+  For a job whose processes all run on one machine, `local_init_method`
+  gives a rendezvous on a file in the job's directory, with no TCP port to
+  pick.
+- `shutdown_distributed` ends the job; `init_distributed` registers it with
+  atexit, as the JAX package finalizes its job at exit.
 - `MultiHostFleet` is one process's part of the global fleet: a
   parallel/mesh.py FleetDemodulator over the process's own device list.
   Global stream rows are rank-major: process r owns rows
@@ -26,13 +31,24 @@ of a multi-process job; so does this module:
   streams flagged recovers them alone, with no collective, and the
   corrected rows reach the next tick's reduction.
 
+The exit contract: after a clean job every process exits 0, whether it
+calls shutdown_distributed itself or leaves it to atexit; a process whose
+peer died exits within the job's timeout, non-zero where its own work
+failed. Without the shutdown a gloo worker thread can still hold the last
+collective's tensor when the interpreter finalizes; releasing it then needs
+the GIL, Python ends the thread with pthread_exit inside a noexcept C++
+destructor, and the process aborts (SIGABRT) after it did its work.
+
 A world of one (no process group) runs the same code with no collective.
 torch.distributed is called only in this module.
 """
 
 from __future__ import annotations
 
+import atexit
 import datetime
+import os
+import sys
 
 import numpy as np
 import torch
@@ -53,8 +69,13 @@ def init_distributed(init_method: str | None = None,
 
     init_method defaults to env:// (MASTER_ADDR, MASTER_PORT and, when not
     given, WORLD_SIZE and RANK from the environment); e.g.
-    init_distributed("tcp://localhost:29500", 2, rank). A failed or timed
-    out rendezvous raises."""
+    init_distributed("tcp://localhost:29500", 2, rank), or, for processes
+    on one machine, init_distributed(local_init_method(job_dir), 2, rank).
+    A failed or timed out rendezvous raises.
+
+    Joining registers shutdown_distributed with atexit, so every process
+    of a clean job exits 0 even if it never calls it; timeout_s also bounds
+    what a dead peer costs a collective or the exit."""
     dist = torch.distributed
     if dist.is_initialized():
         return
@@ -66,6 +87,44 @@ def init_distributed(init_method: str | None = None,
     dist.init_process_group(
         "gloo", init_method=init_method or "env://",
         timeout=datetime.timedelta(seconds=timeout_s), **kw)
+    atexit.register(_shutdown_at_exit)
+
+
+def local_init_method(directory: str) -> str:
+    """init_method for a job whose processes all run on this machine: a
+    FileStore on a file in `directory`, which serves this one job (e.g. a
+    new temporary directory; the file may outlive the job) and is given to
+    every process. No TCP port is picked, so no other process can take it
+    between the pick and rank 0's bind."""
+    return "file://" + os.path.join(os.path.abspath(directory), "rendezvous")
+
+
+def shutdown_distributed() -> None:
+    """End this process's part of the job: a barrier under the job's
+    timeout, so that no process tears down while a peer still uses the
+    group, then destroy_process_group, which joins gloo's worker threads
+    while the interpreter can still run them. A no-op outside a process
+    group, and idempotent. Raises if the barrier fails (a peer died or
+    timed out); the group is destroyed all the same."""
+    _shutdown(agree=True)
+
+
+def _shutdown_at_exit() -> None:
+    # A process leaving on an uncaught exception skips the barrier: its
+    # peers may be inside another collective, which a barrier would meet
+    # only at the timeout; closing the group at once fails theirs now.
+    _shutdown(agree=not hasattr(sys, "last_value"))
+
+
+def _shutdown(agree: bool) -> None:
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()):
+        return
+    try:
+        if agree:
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
 
 
 def world() -> tuple[int, int]:
@@ -102,6 +161,11 @@ class MultiHostFleet:
     visible card, utils.make_mesh), streams_per_device streams on each; with
     mesh=None in every process this is the JAX package's global_fleet, the
     fleet over every card of the job.
+
+    A job of several processes is joined with init_distributed before the
+    fleet is made and ends with shutdown_distributed or at exit: every
+    process of a clean job exits 0, and a dead peer costs a telemetry tick
+    or the exit at most the job's timeout.
     """
 
     def __init__(self, cfg: DemodConfig, streams_per_device: int,

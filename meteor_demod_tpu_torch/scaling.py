@@ -40,7 +40,6 @@ import argparse
 import dataclasses
 import json
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -53,6 +52,8 @@ from .config import DemodConfig
 from .demod.backend import make_batch_demod
 from .demod.state import carry_from_numpy, carry_to_numpy
 from .dsp.fir import iq_to_f32
+from .parallel.multihost import (MultiHostFleet, init_distributed,
+                                 local_init_method, shutdown_distributed)
 from .sim import synth_psk
 from .utils import make_mesh, select_device, to_device, to_host
 
@@ -199,27 +200,21 @@ def run_shards(cfg: DemodConfig, spd: int, steps: int, sizes: list, device
 # multiprocess: one worker a process (this module run with --worker)
 # ---------------------------------------------------------------------------
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def worker(rank: int, nprocs: int, port: int, spd: int, block: int,
+def worker(rank: int, nprocs: int, init_method: str, spd: int, block: int,
            steps: int, cores: list, device: str, tel_every: int,
            out: str) -> None:
     """One process of the multiprocess mode: pinned to `cores` on the CPU,
-    joins the gloo job when nprocs > 1, warms its MultiHostFleet to lock,
-    times `steps` steps and writes its rate, last outputs, carry and the
-    job's telemetry to `out` (.npz)."""
-    from .parallel.multihost import MultiHostFleet, init_distributed
+    joins the gloo job at `init_method` when nprocs > 1, warms its
+    MultiHostFleet to lock, times `steps` steps, writes its rate, last
+    outputs, carry and the job's telemetry to `out` (.npz) and ends the
+    job."""
     if device == "cpu":
         # Every thread torch starts from here on inherits the mask.
         os.sched_setaffinity(0, cores)
         torch.set_num_threads(len(cores))
     if nprocs > 1:
-        init_distributed(f"tcp://localhost:{port}", world_size=nprocs,
-                         rank=rank, timeout_s=300)
+        init_distributed(init_method, world_size=nprocs, rank=rank,
+                         timeout_s=300)
     cfg = DemodConfig(samplerate=230400, block_len=block)
     fleet = MultiHostFleet(cfg, spd, telemetry_every=tel_every,
                            mesh=[device])
@@ -241,6 +236,7 @@ def worker(rank: int, nprocs: int, port: int, spd: int, block: int,
              **{f"carry_{k}": v for k, v in
                 carry_to_numpy(fleet.carry).items()},
              **{f"tel_{k}": v for k, v in fleet.telemetry.items()})
+    shutdown_distributed()
 
 
 def run_multiprocess(spd: int, block: int, steps: int, device,
@@ -261,12 +257,12 @@ def run_multiprocess(spd: int, block: int, steps: int, device,
                + os.environ.get("PYTHONPATH", ""))
 
     def job(nprocs: int, tmp: str) -> list:
-        port = _free_port()
+        init_method = local_init_method(tmp)
         outs = [os.path.join(tmp, f"p{nprocs}_{r}.npz")
                 for r in range(nprocs)]
         procs = [subprocess.Popen(
             [sys.executable, "-m", "meteor_demod_tpu_torch.scaling",
-             "--worker", str(r), str(nprocs), str(port), str(spd),
+             "--worker", str(r), str(nprocs), init_method, str(spd),
              str(block), str(steps), ",".join(map(str, core_sets[r])),
              devs[r], str(tel_every), outs[r]],
             env=env, cwd=root, stdout=subprocess.PIPE,
@@ -318,9 +314,9 @@ def run_multiprocess(spd: int, block: int, steps: int, device,
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--worker"]:
-        (rank, nprocs, port, spd, block, steps, cores, device, tel_every,
-         out) = argv[1:11]
-        worker(int(rank), int(nprocs), int(port), int(spd), int(block),
+        (rank, nprocs, init_method, spd, block, steps, cores, device,
+         tel_every, out) = argv[1:11]
+        worker(int(rank), int(nprocs), init_method, int(spd), int(block),
                int(steps), [int(c) for c in cores.split(",") if c], device,
                int(tel_every), out)
         return 0

@@ -3,7 +3,8 @@ in a real 2-process gloo job on the CPU, held against the single-process
 port as tests/test_multihost.py holds the JAX package's.
 
 Two workers (tests/torch_multihost_worker.py), each with four "cpu" shards
-of 2 streams (16 global streams), rendezvous over tcp://localhost; their
+of 2 streams (16 global streams), rendezvous on a file in the test's
+directory (parallel/multihost.py local_init_method) and both exit 0; their
 local rows must be bitwise the single-process fleet's rows and their
 telemetry the same in both processes. The workers also hold
 telemetry_every=3 against per-block telemetry, the multihost checkpoint
@@ -12,7 +13,6 @@ there exits the worker non-zero).
 """
 
 import os
-import socket
 import subprocess
 import sys
 
@@ -20,6 +20,7 @@ import numpy as np
 
 from meteor_demod_tpu_torch.config import DemodConfig
 from meteor_demod_tpu_torch.parallel.mesh import FleetDemodulator
+from meteor_demod_tpu_torch.parallel.multihost import local_init_method
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_multihost_worker import stream_blocks  # noqa: E402
@@ -28,14 +29,8 @@ WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "torch_multihost_worker.py")
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def test_two_process_gloo_fleet(tmp_path):
-    port = _free_port()
+    init_method = local_init_method(tmp_path)
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env["METEOR_DEMOD_PLATFORM"] = "cpu"
     procs, outfiles = [], []
@@ -43,7 +38,7 @@ def test_two_process_gloo_fleet(tmp_path):
         out = tmp_path / f"w{rank}.npz"
         outfiles.append(out)
         procs.append(subprocess.Popen(
-            [sys.executable, WORKER, str(rank), str(port), str(out),
+            [sys.executable, WORKER, str(rank), init_method, str(out),
              str(tmp_path)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env))
     for p in procs:

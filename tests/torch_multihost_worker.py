@@ -1,14 +1,14 @@
 """Worker process for tests/test_torch_multihost.py (not a test module).
 
-Joins a 2-process gloo job over tcp://localhost:<port> with four "cpu"
+Joins a 2-process gloo job at <init method> with four "cpu"
 shards of its own (8 global shards of 2 streams: 16 global streams), runs
 MultiHostFleet steps on its local rows and writes its outputs and the
 global telemetry for the parent to compare against the single-process port.
 Also holds, in the job: telemetry_every=3 against per-block telemetry, a
 multihost checkpoint resumed bitwise, and a checkpoint of another topology
-refused.
+refused. It ends the job with shutdown_distributed.
 
-Usage: python torch_multihost_worker.py <rank> <port> <out.npz> <ckpt dir>
+Usage: python torch_multihost_worker.py <rank> <init method> <out.npz> <ckpt dir>
 """
 
 import os
@@ -23,7 +23,9 @@ from meteor_demod_tpu_torch.demod.state import carry_to_numpy
 from meteor_demod_tpu_torch.io.checkpoint import (load_multihost_checkpoint,
                                                   save_multihost_checkpoint)
 from meteor_demod_tpu_torch.parallel.multihost import (MultiHostFleet,
-                                                       init_distributed, world)
+                                                       init_distributed,
+                                                       shutdown_distributed,
+                                                       world)
 from meteor_demod_tpu_torch.sim import synth_psk
 
 MESH = ["cpu"] * 4
@@ -41,13 +43,12 @@ def stream_blocks(cfg, g: int) -> np.ndarray:
 
 
 def main():
-    rank, port, outpath, ckdir = (int(sys.argv[1]), sys.argv[2],
-                                  sys.argv[3], sys.argv[4])
-    init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank,
-                     timeout_s=120)
+    rank, init_method, outpath, ckdir = (int(sys.argv[1]), sys.argv[2],
+                                         sys.argv[3], sys.argv[4])
+    init_distributed(init_method, world_size=2, rank=rank, timeout_s=120)
     assert world() == (2, rank), world()
     # A second call is a no-op.
-    init_distributed(f"tcp://localhost:{port}", world_size=2, rank=rank)
+    init_distributed(init_method, world_size=2, rank=rank)
 
     cfg = DemodConfig(samplerate=230400, block_len=1024)
     L = cfg.block_len
@@ -103,6 +104,8 @@ def main():
              sym_im=outs.sym_im, valid=outs.valid,
              locked_once=outs.locked_once,
              **{f"tel_{k}": v for k, v in tel.items()})
+    shutdown_distributed()
+    assert world() == (1, 0), world()
     print(f"worker {rank} ok", flush=True)
 
 
