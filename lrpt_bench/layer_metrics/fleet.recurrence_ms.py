@@ -1,0 +1,9 @@
+"""Device ms of the recurrence kernels (the `recurrence` layer) a block."""
+from lrpt_bench.layer_metrics._common import per_call
+
+
+def read(ctx):
+    v = per_call(ctx, "recurrence")
+    if not len(v) or v.sum() <= 0:
+        return None
+    return float(v.mean() * 1e3 / ctx["run"].mix["chain_blocks"])
