@@ -38,12 +38,14 @@ but `ab`, `turbo`, `lanes`, `cli`, `native` and `shards` by default):
           demod_array_turbo(strict=True) on 120 s of signal (32, the 105
           lanes of the CLI's -T 0, 128 and 512 lanes) and on a full 600 s
           pass (32, 128, 512 and 2048 lanes): converged, passes, fallback,
-          wall seconds and their split into upload, warm-up, each pass,
-          readback, assembly and the sequential tail (the module's own
-          stages, timed from outside), beside demod_array on the 120 s; and
-          the span-mode stream (32 lanes x 16 blocks a span) over the 120 s
-          fed in 8192-sample pieces: ms per span in span_submit and
-          span_finish, verified lanes;
+          wall seconds under torch.profiler and their split by the
+          program's spans (profiling.span) into turbo.prepare (upload and
+          tails), turbo.warmup, each turbo.pass, turbo.assemble (readback
+          and assembly) and turbo.sequential (the fallback and the tail),
+          beside demod_array on the 120 s; and the span-mode stream (32
+          lanes x 16 blocks a span) over the 120 s fed in 8192-sample
+          pieces: ms per span in stream.span_submit and
+          stream.span_finish;
   lanes   why a pass at the 105 lanes of -T 0 costs more than one at 128:
           the kernel alone and the FIR alone, ms per block at B = 104, 105,
           108 and 128 per mode (CUDA events, 20 calls a reading, the counts
@@ -55,9 +57,11 @@ but `ab`, `turbo`, `lanes`, `cli`, `native` and `shards` by default):
   native  the CLI's I/O with io/native.py's C++ library against numpy, per
           mode: -B on chip_smoke.py (d)'s 30 s WAV and -T 0 on (h)'s 120 s
           WAV, a warm-up run, then NATIVE_ROUNDS rounds of native, numpy, numpy,
-          native; each run's wall seconds split into reading the file,
-          decoding, quantizing and writing (the CLI's own calls, timed from
-          outside), every run's .s byte-identical to the first;
+          native, each under torch.profiler; each run's wall seconds and,
+          for -T 0, their split into the CLI's spans cli.read, cli.decode,
+          cli.quantize and cli.write (the -B path runs on a worker thread
+          and has no such spans); every run's .s byte-identical to the
+          first;
   shards  chip_smoke.py (j)'s sharded fleet driver: FleetDemodulator(cfg,
           128, mesh=[card] * 2, chain_blocks=16, ingest="i16",
           packed_output=True), QPSK, beside the fleet on the card alone,
@@ -534,37 +538,25 @@ def section_lanes(cfgs: dict, dev, res: dict) -> None:
         res[f"{mode}_lanes"] = ms
 
 
-@contextlib.contextmanager
-def turbo_stages(times: dict):
-    """Time demod_array_turbo's stages from outside: its upload, each pass
-    runner call (the first is the warm-up), the readback, the assembly and
-    the sequential tail or fallback. The card is waited for at the end of
-    every stage (the upload only queues its copies), so host clocks bound
-    it."""
-    from meteor_demod_tpu_torch.demod import turbo
+def span_seconds(prof) -> dict:
+    """The program's spans (profiling.span) in a torch.profiler trace: the
+    seconds of each, in order, by name without the "meteor." prefix."""
+    from meteor_demod_tpu_torch.profiling import SPAN_PREFIX
+    out: dict = {}
+    for ev in sorted(prof.profiler.kineto_results.events(),
+                     key=lambda ev: ev.start_ns()):
+        name = ev.name()
+        if (name.startswith(SPAN_PREFIX)
+                and ev.device_type() != torch.autograd.DeviceType.CUDA):
+            out.setdefault(name[len(SPAN_PREFIX):], []).append(
+                (ev.end_ns() - ev.start_ns()) * 1e-9)
+    return out
 
-    def timed(fn, key):
-        def call(*a, **kw):
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            times.setdefault(key, []).append(time.perf_counter() - t0)
-            return out
-        return call
 
-    names = dict(to_device="upload", _lanes_to_host="readback",
-                 _assemble_qpsk_gauge="assemble",
-                 _assemble_oqpsk_gauge="assemble", _sequential_from="tail")
-    saved = {n: getattr(turbo, n) for n in (*names, "make_pass_runner")}
-    for n, key in names.items():
-        setattr(turbo, n, timed(saved[n], key))
-    turbo.make_pass_runner = lambda *a, **kw: timed(
-        saved["make_pass_runner"](*a, **kw), "pass")
-    try:
-        yield
-    finally:
-        for n, fn in saved.items():
-            setattr(turbo, n, fn)
+def profiled():
+    return torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
 
 
 def section_turbo(cfgs: dict, dev, res: dict) -> None:
@@ -590,77 +582,61 @@ def section_turbo(cfgs: dict, dev, res: dict) -> None:
                 res[f"{mode}_sequential_{seconds}s"] = t_seq
             for lanes in lane_counts:
                 kb = len(x) // (lanes * L)
-                times: dict = {}
                 torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                with turbo_stages(times):
+                with profiled() as prof:
+                    t0 = time.perf_counter()
                     r = demod_array_turbo(cfg, x, chunks=lanes, strict=True)
-                wall = time.perf_counter() - t0
-                passes = times.get("pass", [0.0])
+                    wall = time.perf_counter() - t0
+                sp = span_seconds(prof)
+                stage = lambda n: sum(sp.get(f"turbo.{n}", []))
                 row = dict(
                     lanes=lanes, kb=kb, kb_w=default_warmup_blocks(L, kb),
                     converged=r.converged, passes=r.passes,
                     fell_back=r.fell_back,
                     fallback_samples=r.fallback_samples,
                     symbols=len(r.symbols), wall_s=wall,
-                    upload_s=sum(times.get("upload", [])),
-                    warmup_s=passes[0], pass_s=passes[1:],
-                    readback_s=sum(times.get("readback", [])),
-                    assemble_s=sum(times.get("assemble", [])),
-                    tail_s=sum(times.get("tail", [])))
+                    prepare_s=stage("prepare"), warmup_s=stage("warmup"),
+                    pass_s=sp.get("turbo.pass", []),
+                    assemble_s=stage("assemble"),
+                    sequential_s=stage("sequential"))
                 print(f"{mode} {seconds} s turbo {lanes:5d} lanes x {kb:4d} "
                       f"blocks (warm-up {row['kb_w']}): converged "
                       f"{r.converged}, {r.passes} passes, fallback "
-                      f"{r.fallback_samples} samples, wall {wall:.3f} s = "
-                      f"upload {row['upload_s']:.3f} + warm-up "
+                      f"{r.fallback_samples} samples, wall {wall:.3f} s "
+                      f"(traced) = prepare {row['prepare_s']:.3f} + warm-up "
                       f"{row['warmup_s']:.3f} + passes "
                       f"{'/'.join(f'{t:.3f}' for t in row['pass_s'])} + "
-                      f"readback {row['readback_s']:.3f} + assembly "
-                      f"{row['assemble_s']:.3f} + tail {row['tail_s']:.3f} + "
-                      f"other; {1e3 * sum(row['pass_s']) / max(1, len(row['pass_s']) * kb):.3f}"
+                      f"assembly {row['assemble_s']:.3f} + sequential "
+                      f"{row['sequential_s']:.3f} + other; "
+                      f"{1e3 * sum(row['pass_s']) / max(1, len(row['pass_s']) * kb):.3f}"
                       f" ms a block in a pass", flush=True)
                 res[f"{mode}_turbo_{seconds}s_{lanes}"] = row
             if seconds != 120:
                 continue
             # Span by span, as the CLI's -T 32 on stdin feeds it.
             d = StreamDemodulator(cfg, span_turbo=True, span_chunks=32)
-            spans, finishes = [], []
-            submit, finish = d._submit_span, d._finish_span
-
-            def timed_submit(span):
+            with profiled() as prof:
                 t0 = time.perf_counter()
-                pend = submit(span)
-                spans.append(dict(submit_ms=1e3 * (time.perf_counter() - t0),
-                                  lanes=0 if pend is None else pend.P,
-                                  passes=None if pend is None else pend.passes))
-                return pend
-
-            def timed_finish(pend):
+                n_out = sum(len(d.process(x[at:at + 8192]))
+                            for at in range(0, len(x), 8192))
+                t_feed = time.perf_counter() - t0
                 t0 = time.perf_counter()
-                out = finish(pend)
-                finishes.append(1e3 * (time.perf_counter() - t0))
-                return out
-
-            d._submit_span, d._finish_span = timed_submit, timed_finish
-            t0 = time.perf_counter()
-            n_out = sum(len(d.process(x[at:at + 8192]))
-                        for at in range(0, len(x), 8192))
-            t_feed = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            n_out += len(d.finish())
-            t_fin = time.perf_counter() - t0
-            accepted = [sp for sp in spans if sp["lanes"]]
-            for sp, ms in zip(accepted, finishes):
-                sp["finish_ms"] = ms          # spans finish in submit order
-            for i, sp in enumerate(spans):
-                print(f"{mode} span {i}: submit {sp['submit_ms']:.1f} ms "
-                      f"({sp['passes']} passes), finish "
-                      f"{sp.get('finish_ms', float('nan')):.1f} ms, "
-                      f"{sp['lanes']}/32 lanes verified", flush=True)
+                n_out += len(d.finish())
+                t_fin = time.perf_counter() - t0
+            sp = span_seconds(prof)
+            # Spans finish in submit order; an unverified one never does.
+            spans = [dict(submit_ms=1e3 * t) for t in
+                     sp.get("stream.span_submit", [])]
+            for i, t in enumerate(sp.get("stream.span_finish", [])):
+                spans[i]["finish_ms"] = 1e3 * t
+            for i, row in enumerate(spans):
+                print(f"{mode} span {i}: submit {row['submit_ms']:.1f} ms, "
+                      f"finish {row.get('finish_ms', float('nan')):.1f} ms",
+                      flush=True)
             print(f"{mode} span stream over {seconds} s in 8192-sample "
                   f"pieces: {d.spans_run} spans, {d.span_fallbacks} "
                   f"fallbacks, {n_out} symbols, feeding {t_feed:.3f} s, "
-                  f"finish() {t_fin:.3f} s", flush=True)
+                  f"finish() {t_fin:.3f} s (traced)", flush=True)
             res[f"{mode}_span_stream"] = dict(
                 spans=spans, feed_s=t_feed, finish_s=t_fin,
                 spans_run=d.spans_run, fallbacks=d.span_fallbacks)
@@ -694,56 +670,6 @@ def section_cli(cfgs: dict, dev, res: dict) -> None:
             res[f"{mode}_cli_{name}_s"] = walls[1:]
 
 
-@contextlib.contextmanager
-def timed_io(secs: dict):
-    """Within it, the CLI's reads, decodes, quantizer calls and writer calls
-    add their seconds to `secs` (keys read, decode, quantize, write)."""
-    from meteor_demod_tpu_torch import cli
-    from meteor_demod_tpu_torch.io import wav, writer
-    saved = []
-
-    def timing(fn, key):
-        def timed(*a, **kw):
-            t0 = time.perf_counter()
-            try:
-                return fn(*a, **kw)
-            finally:
-                secs[key] += time.perf_counter() - t0
-        return timed
-
-    class Reader:                         # the input file, reads timed
-        def __init__(self, f):
-            self.read = timing(f.read, "read")
-            self._f = f
-
-        def __getattr__(self, name):
-            return getattr(self._f, name)
-
-    open_input = cli.open_input
-
-    def timed_open(path):
-        f, info, is_stdin = open_input(path)
-        return Reader(f), info, is_stdin
-
-    for owner, name, fn in (
-            (cli, "open_input", timed_open),
-            (wav, "decode_iq", timing(wav.decode_iq, "decode")),  # -B
-            (cli, "decode_iq", timing(cli.decode_iq, "decode")),  # -T
-            (cli, "quantize_symbols", timing(cli.quantize_symbols,
-                                             "quantize")),
-            (writer.SymbolWriter, "feed",
-             timing(writer.SymbolWriter.feed, "write")),
-            (writer.SymbolWriter, "flush_partial",
-             timing(writer.SymbolWriter.flush_partial, "write"))):
-        saved.append((owner, name, getattr(owner, name)))
-        setattr(owner, name, fn)
-    try:
-        yield
-    finally:
-        for owner, name, fn in reversed(saved):
-            setattr(owner, name, fn)
-
-
 def section_native(cfgs: dict, dev, res: dict) -> None:
     """The CLI's I/O, native against numpy (see the module docstring)."""
     import chip_smoke as cs
@@ -768,14 +694,17 @@ def section_native(cfgs: dict, dev, res: dict) -> None:
             runs = {"native": [], "numpy": []}
             order = ["native", "numpy", "numpy", "native"] * NATIVE_ROUNDS
             for path in order:
-                secs = dict(read=0.0, decode=0.0, quantize=0.0, write=0.0)
                 with (cs.numpy_io() if path == "numpy"
-                      else contextlib.nullcontext()), timed_io(secs):
+                      else contextlib.nullcontext()), profiled() as prof:
                     t0 = time.perf_counter()
                     if cli.main(argv) != 0:
                         raise RuntimeError(f"{mode} CLI -{name} failed "
                                            f"({path})")
-                    secs["wall"] = time.perf_counter() - t0
+                    wall = time.perf_counter() - t0
+                sp = span_seconds(prof)
+                secs = {k: sum(sp.get(f"cli.{k}", [])) for k in
+                        ("read", "decode", "quantize", "write")}
+                secs["wall"] = wall
                 with open(out, "rb") as f:
                     if f.read() != first:
                         raise RuntimeError(f"{mode} CLI -{name} on the "
@@ -784,12 +713,13 @@ def section_native(cfgs: dict, dev, res: dict) -> None:
         for path, rs in runs.items():
             med = {k: statistics.median(r[k] for r in rs) for k in rs[0]}
             walls = " / ".join(f"{r['wall']:.3f}" for r in rs)
+            split = ("" if name == "B" else
+                     f"; medians: read {med['read'] * 1e3:.1f}, decode "
+                     f"{med['decode'] * 1e3:.1f}, quantize "
+                     f"{med['quantize'] * 1e3:.1f}, write "
+                     f"{med['write'] * 1e3:.1f} ms of {med['wall']:.3f} s")
             print(f"{mode} CLI -{name} on {seconds} s, {path} I/O: wall "
-                  f"{walls} s; medians: read {med['read'] * 1e3:.1f}, "
-                  f"decode {med['decode'] * 1e3:.1f}, quantize "
-                  f"{med['quantize'] * 1e3:.1f}, write "
-                  f"{med['write'] * 1e3:.1f} ms of {med['wall']:.3f} s",
-                  flush=True)
+                  f"{walls} s{split}", flush=True)
             res[f"{mode}_cli_{name}_{path}_io"] = rs
 
 

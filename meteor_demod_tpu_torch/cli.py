@@ -38,7 +38,7 @@ from .demod.pipeline import StreamDemodulator, quantize_symbols
 from .io.checkpoint import load_checkpoint, save_checkpoint
 from .io.wav import FILE_BUFFER_SIZE, decode_iq, open_input, read_sample_blocks
 from .io.writer import SymbolWriter
-from .profiling import maybe_trace
+from .profiling import call, counters, maybe_trace, span
 from .utils import gen_fname, human_to_float, make_mesh, select_device
 
 # -T 0 fills at most this many lanes of a launch per device, each lane with
@@ -274,6 +274,14 @@ class DemodRunner:
 
 
 def main(argv: list[str] | None = None) -> int:
+    """One run of the CLI: its exit code. The run is the span cli.main, and
+    its changes of the profiling counters are kept in
+    profiling.calls("cli.main")."""
+    with call("cli.main"):
+        return _main(argv)
+
+
+def _main(argv: list[str] | None) -> int:
     argv = list(sys.argv) if argv is None else argv
     opts = parse_args(argv)
     if isinstance(opts, int):
@@ -437,28 +445,40 @@ def _run_turbo(opts: Options, cfg: DemodConfig, samples_file, soft_file,
     stream (one device, the CPU, under METEOR_DEMOD_PLATFORM=cpu)."""
     from .demod.turbo import demod_array_turbo
 
-    raw = samples_file.read()
-    # Reference ingest parity (wav_read reads full 32 KiB buffers and
-    # discards a short trailing read, wavfile.c:50-80): -T must demodulate
-    # exactly the bytes the batch path consumes, or the two modes emit
-    # different symbol streams for the same file.
-    raw = raw[:len(raw) - len(raw) % FILE_BUFFER_SIZE]
-    x = decode_iq(raw, bps)
+    with span("cli.read"):
+        raw = samples_file.read()
+        # Reference ingest parity (wav_read reads full 32 KiB buffers and
+        # discards a short trailing read, wavfile.c:50-80): -T must
+        # demodulate exactly the bytes the batch path consumes, or the two
+        # modes emit different symbol streams for the same file.
+        raw = raw[:len(raw) - len(raw) % FILE_BUFFER_SIZE]
+    with span("cli.decode"):
+        x = decode_iq(raw, bps)
     chunks = opts.turbo_chunks or turbo_lanes(len(x), cfg.block_len,
                                               len(make_mesh()))
     info = sys.stderr if opts.stdout_mode else sys.stdout
     if not opts.quiet:
         print(f"Turbo: {len(x)} samples across {chunks} lanes", file=info)
+    seq0 = counters().get("turbo.sequential_samples", 0)
     res = demod_array_turbo(cfg, x, chunks=chunks, mesh="auto", strict=True)
-    w = SymbolWriter(soft_file)
-    w.feed(quantize_symbols(res.symbols), res.symbols["locked_once"])
-    w.flush_partial()
-    if not opts.stdout_mode:
-        soft_file.close()
+    seq = counters().get("turbo.sequential_samples", 0) - seq0
+    with span("cli.quantize"):
+        soft = quantize_symbols(res.symbols)
+    with span("cli.write"):
+        w = SymbolWriter(soft_file)
+        w.feed(soft, res.symbols["locked_once"])
+        w.flush_partial()
+        if not opts.stdout_mode:
+            soft_file.close()
     samples_file.close()
     if not opts.quiet:
+        # The samples demodulated on the sequential path: the unverified
+        # suffix of a fixpoint that did not converge (or the whole
+        # recording), and the tail after the last whole chunk.
         print(f"Turbo: {len(res.symbols)} symbols, passes={res.passes}, "
-              f"converged={res.converged}", file=info)
+              f"converged={res.converged}, sequential={seq} samples "
+              f"(fallback {res.fallback_samples}, tail "
+              f"{seq - res.fallback_samples})", file=info)
     return 0
 
 

@@ -24,6 +24,7 @@ import torch
 from ..config import DemodConfig
 from ..constants import SWEEP_STEP
 from ..dsp.fir import f32_to_iq, iq_to_f32
+from .. import profiling
 from ..io import native
 from ..utils import select_device
 from .backend import make_batch_demod
@@ -280,7 +281,8 @@ class StreamDemodulator:
         if self.sweep_rescue_s > 0:
             self._maybe_sweep_kick(len(samples))
         if chunks:
-            out = np.concatenate(chunks)
+            with profiling.span("stream.collect"):
+                out = np.concatenate(chunks)
             self.symbols_out += len(out)
             return out
         return np.zeros(0, dtype=_SYM_DTYPE)
@@ -359,22 +361,25 @@ class StreamDemodulator:
         None when nothing verified (the caller falls through to the
         sequential chained path)."""
         from .turbo import span_submit
-        carry0 = {k: v[0] for k, v in carry_to_numpy(self._carry).items()}
-        pend = span_submit(self.cfg, carry0, iq_to_f32(span),
-                           chunks=self.span_chunks, device=self.device)
-        self.spans_run += 1
-        if pend.consumed == 0:
-            self.span_fallbacks += 1
-            return None
-        self._pending = self._pending[pend.consumed:]
-        self.set_carry(pend.exit_carry)
-        return pend
+        with profiling.span("stream.span_submit"):
+            carry0 = {k: v[0]
+                      for k, v in carry_to_numpy(self._carry).items()}
+            pend = span_submit(self.cfg, carry0, iq_to_f32(span),
+                               chunks=self.span_chunks, device=self.device)
+            self.spans_run += 1
+            if pend.consumed == 0:
+                self.span_fallbacks += 1
+                return None
+            self._pending = self._pending[pend.consumed:]
+            self.set_carry(pend.exit_carry)
+            return pend
 
     def _finish_span(self, pend) -> np.ndarray:
         """Fetch and assemble a submitted span's symbols
         (turbo.span_finish)."""
         from .turbo import span_finish
-        return span_finish(self.cfg, pend).symbols
+        with profiling.span("stream.span_finish"):
+            return span_finish(self.cfg, pend).symbols
 
     def _drain_blocks(self, chunks: list) -> None:
         """Drain _pending through the chained / single-block device paths
@@ -403,11 +408,12 @@ class StreamDemodulator:
     def _oracle(self, x: np.ndarray, prev_carry: DemodCarry) -> np.ndarray:
         """Recompute x exactly with the scalar oracle from prev_carry
         (oracle_replay) and install the resulting carry."""
-        symbols, st = oracle_replay(
-            self.cfg, x, carry_to_scalar_state(self.cfg, prev_carry))
-        self._carry = scalar_state_to_carry(self.cfg, st, self.device)
-        self._publish_telemetry()
-        return symbols
+        with profiling.span("stream.oracle"):
+            symbols, st = oracle_replay(
+                self.cfg, x, carry_to_scalar_state(self.cfg, prev_carry))
+            self._carry = scalar_state_to_carry(self.cfg, st, self.device)
+            self._publish_telemetry()
+            return symbols
 
     def _count_replay(self, n_blocks: int) -> None:
         self.fallback_blocks += n_blocks
@@ -419,23 +425,30 @@ class StreamDemodulator:
         L = self.cfg.block_len
         k = len(span) // L
         prev_carry = self._carry
-        blocks = self._upload(span).view(k, 1, L, 2)
-        carry, outs = prev_carry, []
-        for i in range(k):
-            carry, o = self._fn(carry, blocks[i])
-            outs.append(o)
-        tel, outs_np = _fetch(carry, outs)
+        with profiling.span("stream.upload"):
+            blocks = self._upload(span).view(k, 1, L, 2)
+        with profiling.span("stream.launch"):
+            carry, outs = prev_carry, []
+            for i in range(k):
+                carry, o = self._fn(carry, blocks[i])
+                outs.append(o)
+        with profiling.span("stream.fetch"):
+            tel, outs_np = _fetch(carry, outs)
+            symbols = _outputs_to_symbols(outs_np)
         if tel["flags"] != 0:
             # Safety net: recompute the span with the scalar oracle.
             self._count_replay(k)
             return self._oracle(span, prev_carry)
         self._carry = carry
         self._set_telemetry(tel)
-        return _outputs_to_symbols(outs_np)
+        return symbols
 
     def _run_block(self, block: np.ndarray) -> np.ndarray:
         prev_carry = self._carry
-        carry, outs = self._fn(prev_carry, self._upload(block)[None])
+        with profiling.span("stream.upload"):
+            x = self._upload(block)[None]
+        with profiling.span("stream.launch"):
+            carry, outs = self._fn(prev_carry, x)
         self._inflight.append((prev_carry, block, carry, outs))
         self._carry = carry
         if len(self._inflight) > self.lookahead:
@@ -447,7 +460,9 @@ class StreamDemodulator:
         symbols); on a safety flag, recompute it with the scalar oracle and
         replay every younger in-flight block from the corrected carry."""
         prev_carry, block, carry, outs = self._inflight.pop(0)
-        tel, outs_np = _fetch(carry, outs)
+        with profiling.span("stream.fetch"):
+            tel, outs_np = _fetch(carry, outs)
+            symbols = _outputs_to_symbols(outs_np)
         if tel["flags"] != 0:
             self._count_replay(1)
             symbols = self._oracle(block, prev_carry)
@@ -460,7 +475,7 @@ class StreamDemodulator:
                 self._carry = c2
             return symbols
         self._set_telemetry(tel)
-        return _outputs_to_symbols(outs_np)
+        return symbols
 
     def sync(self) -> None:
         """Drain the dispatch pipeline, buffering its symbols for the next
@@ -482,8 +497,9 @@ class StreamDemodulator:
         if len(self._pending):
             chunks.append(self._oracle(self._pending, self._carry))
             self._pending = np.zeros(0, dtype=np.complex64)
-        out = (np.concatenate(chunks) if chunks
-               else np.zeros(0, dtype=_SYM_DTYPE))
+        with profiling.span("stream.collect"):
+            out = (np.concatenate(chunks) if chunks
+                   else np.zeros(0, dtype=_SYM_DTYPE))
         self.symbols_out += len(out)
         return out
 

@@ -83,6 +83,7 @@ from .. import constants as C
 from ..config import DemodConfig
 from ..dsp.fir import f32_to_iq, iq_to_f32
 from ..parallel.mesh import Shards, make_fleet_demod
+from ..profiling import count, span
 from ..utils import make_mesh, select_device, to_device, to_host
 from .pipeline import _SYM_DTYPE, StreamDemodulator, quantize
 from .state import (CARRY_FIELDS, BlockOutput, PackedOutput, batch_carry_np,
@@ -713,55 +714,57 @@ def gauge_fixpoint(cfg, run, w_np: dict, tails_np, max_passes,
     exact_used = np.zeros(lanes, bool)
     exact_used[0] = True
     for p in range(max_passes):
-        f_np, outs, stats = run(g_np)
-        passes += 1
-        # Gauge anchor: pass 1 measures against the warmup states (their
-        # phase can lag systematically, the warmup's freq integrator being
-        # younger than the full-chunk exit's, so that measurement is only
-        # a best-effort initializer). Later passes measure against the
-        # entries actually used: entry[c] carries the applied rotation, so
-        # the diff still yields the FULL per-boundary quadrant, but now
-        # between same-maturity states: delta collapses to pass-to-pass
-        # drift, and a pass-1 quadrant mistake shows up as k changing.
-        k, delta, _ = _gauge_measure(f_np, w_np if p == 0 else g_np, cfg)
-        # Boundaries handing over an UNLOCKED exit are forced to the
-        # identity gauge (a pre-lock lane has no pinned gauge; the raw
-        # predecessor exit is the true trajectory, so exactness extends
-        # through the acquisition region one lane per pass), and lanes
-        # containing a lock transition this pass demand a provably-exact
-        # entry (exact_used above).
-        trans = np.logical_or(
-            np.asarray(g_np["locked"]) != np.asarray(f_np["locked"]),
-            np.asarray(g_np["locked_once"]) != np.asarray(f_np["locked_once"]))
-        if lanes > 1:
-            k = np.where(np.asarray(f_np["locked"])[:-1] == 0, 0, k)
-        ok_trans = np.logical_or(~trans, exact_used)
-        max_delta = float(np.max(np.abs(delta))) if len(delta) else 0.0
-        fp = tuple(tuple(int(x) for x in t) for t in zip(*stats[:3]))
-        g_new = _gauge_shift_np(init_np, f_np, w_np, k, tails_np, cfg)
-        settled, resid = _decisions_settled(g_new, g_np)
-        lane_ok = np.logical_and(
-            _lane_ok_np(fp, prev_fp, k, k_prev, delta, g_new, g_np),
-            ok_trans)
-        max_resid = max(max_delta, resid)
-        k_stable = k_prev is not None and not np.any((k - k_prev) % 4)
-        if prev_fp is not None and fp == prev_fp and k_stable \
-                and max_delta < GAUGE_DELTA_TOL and settled \
-                and bool(np.all(ok_trans)):
-            converged = True
-            break
-        prev_fp = fp
-        k_prev = k
-        g_np = g_new
-        # Propagate entry exactness into the entries just built for the
-        # next pass: lane c's new entry is exact iff its predecessor's
-        # entry was exact this pass AND the rotation into lane c's gauge
-        # is even (exact).
-        nxt = np.zeros_like(exact_used)
-        nxt[0] = True
-        if lanes > 1:
-            nxt[1:] = exact_used[:-1] & (np.asarray(k) % 4 == 0)
-        exact_used = nxt
+        with span("turbo.pass"):
+            f_np, outs, stats = run(g_np)
+            passes += 1
+            # Gauge anchor: pass 1 measures against the warmup states (their
+            # phase can lag systematically, the warmup's freq integrator being
+            # younger than the full-chunk exit's, so that measurement is only
+            # a best-effort initializer). Later passes measure against the
+            # entries actually used: entry[c] carries the applied rotation, so
+            # the diff still yields the FULL per-boundary quadrant, but now
+            # between same-maturity states: delta collapses to pass-to-pass
+            # drift, and a pass-1 quadrant mistake shows up as k changing.
+            k, delta, _ = _gauge_measure(f_np, w_np if p == 0 else g_np, cfg)
+            # Boundaries handing over an UNLOCKED exit are forced to the
+            # identity gauge (a pre-lock lane has no pinned gauge; the raw
+            # predecessor exit is the true trajectory, so exactness extends
+            # through the acquisition region one lane per pass), and lanes
+            # containing a lock transition this pass demand a provably-exact
+            # entry (exact_used above).
+            trans = np.logical_or(
+                np.asarray(g_np["locked"]) != np.asarray(f_np["locked"]),
+                np.asarray(g_np["locked_once"])
+                != np.asarray(f_np["locked_once"]))
+            if lanes > 1:
+                k = np.where(np.asarray(f_np["locked"])[:-1] == 0, 0, k)
+            ok_trans = np.logical_or(~trans, exact_used)
+            max_delta = float(np.max(np.abs(delta))) if len(delta) else 0.0
+            fp = tuple(tuple(int(x) for x in t) for t in zip(*stats[:3]))
+            g_new = _gauge_shift_np(init_np, f_np, w_np, k, tails_np, cfg)
+            settled, resid = _decisions_settled(g_new, g_np)
+            lane_ok = np.logical_and(
+                _lane_ok_np(fp, prev_fp, k, k_prev, delta, g_new, g_np),
+                ok_trans)
+            max_resid = max(max_delta, resid)
+            k_stable = k_prev is not None and not np.any((k - k_prev) % 4)
+            if prev_fp is not None and fp == prev_fp and k_stable \
+                    and max_delta < GAUGE_DELTA_TOL and settled \
+                    and bool(np.all(ok_trans)):
+                converged = True
+                break
+            prev_fp = fp
+            k_prev = k
+            g_np = g_new
+            # Propagate entry exactness into the entries just built for the
+            # next pass: lane c's new entry is exact iff its predecessor's
+            # entry was exact this pass AND the rotation into lane c's gauge
+            # is even (exact).
+            nxt = np.zeros_like(exact_used)
+            nxt[0] = True
+            if lanes > 1:
+                nxt[1:] = exact_used[:-1] & (np.asarray(k) % 4 == 0)
+            exact_used = nxt
     K = np.concatenate([[0], np.cumsum(k)])
     if lane_ok is None:
         lane_ok = np.zeros(lanes, bool)
@@ -776,15 +779,23 @@ def _as_f32_pairs(x) -> np.ndarray:
     return np.ascontiguousarray(x, dtype=np.float32)
 
 
-def _sequential_from(cfg, device, leaves: dict | None, x: np.ndarray):
-    """x (complex64) through a fresh StreamDemodulator, from the carry
+def _sequential_from(cfg, device, leaves: dict | None, xf: np.ndarray):
+    """xf ((n, 2) float32) through a fresh StreamDemodulator, from the carry
     `leaves` (numpy, one stream) or from cold: (symbols, the carry it ends
-    with as numpy leaves of one stream)."""
-    d = StreamDemodulator(cfg, device)
-    if leaves is not None:
-        d.set_carry(leaves)
-    symbols = np.concatenate([d.process(x), d.finish()])
-    return symbols, {k: v[0] for k, v in carry_to_numpy(d._carry).items()}
+    with as numpy leaves of one stream). Every sample turbo hands to the
+    sequential path goes through here: the span turbo.sequential and the
+    counter turbo.sequential_samples."""
+    with span("turbo.sequential"):
+        count("turbo.sequential_samples", len(xf))
+        d = StreamDemodulator(cfg, device)
+        if leaves is not None:
+            d.set_carry(leaves)
+        x = f32_to_iq(xf)
+        parts = [d.process(x), d.finish()]
+        with span("stream.collect"):
+            symbols = np.concatenate(parts)
+        return symbols, {k: v[0]
+                         for k, v in carry_to_numpy(d._carry).items()}
 
 
 def demod_array_turbo(cfg: DemodConfig, x: np.ndarray, chunks: int = 32,
@@ -852,46 +863,48 @@ def demod_array_turbo(cfg: DemodConfig, x: np.ndarray, chunks: int = 32,
     devices = make_mesh(mesh) if mesh is not None else [select_device(device)]
     shards = Shards(devices, chunks, "chunks")
     device = devices[0]
-    xf = _as_f32_pairs(x)
-    N = len(xf)
     L = cfg.block_len
-    taps = cfg.taps
+    # Turbo covers whole chunks only; the sub-multiple tail is demodulated
+    # sequentially from the (exact) final chunk carry: no zero padding, no
+    # spurious pad symbols.
+    with span("turbo.prepare"):
+        xf = _as_f32_pairs(x)
+        N = len(xf)
+        kb = N // (chunks * L)
+        if kb > 0:
+            chunk_len = kb * L
+            turbo_n = chunks * chunk_len
+            xt = xf[:turbo_n]
+            # Lane c, block k = xt[c*chunk_len + k*L : ... + L]: a view, no
+            # copy.
+            blocks = [to_device(
+                xt[rows.start * chunk_len:rows.stop * chunk_len],
+                dev).view(shards.per, chunk_len, 2)
+                for dev, rows in zip(devices, shards.rows)]
+            tails = boundary_tails(xt, chunks, chunk_len, cfg.taps)
+            run = make_pass_runner(cfg, blocks, shards=shards)
+    count("turbo.samples", N)
 
     def _sequential(tag_converged=True):
-        syms, _ = _sequential_from(cfg, device, None, f32_to_iq(xf))
+        syms, _ = _sequential_from(cfg, device, None, xf)
         return TurboResult(symbols=syms, converged=tag_converged, passes=0,
                            max_residual=0.0, fell_back=True,
                            fallback_samples=N)
 
-    # Turbo covers whole chunks only; the sub-multiple tail is demodulated
-    # sequentially from the (exact) final chunk carry: no zero padding, no
-    # spurious pad symbols.
-    kb = N // (chunks * L)
     if kb == 0:
         return _sequential()
-    chunk_len = kb * L
-    turbo_n = chunks * chunk_len
-    xt = xf[:turbo_n]
-    # Lane c, block k = xt[c*chunk_len + k*L : ... + L]: a view, no copy.
-    blocks = [to_device(xt[rows.start * chunk_len:rows.stop * chunk_len],
-                        dev).view(shards.per, chunk_len, 2)
-              for dev, rows in zip(devices, shards.rows)]
-    tails = boundary_tails(xt, chunks, chunk_len, taps)
     rows = cfg.steps_per_block + (1 if cfg.oqpsk else 0)
-
     init_np = batch_carry_np(cfg, 1)
     K = None
     lane_ok = None
 
     if converge == "gauge":
         kb_w = min(warmup_blocks or default_warmup_blocks(L, kb), kb)
-        w_np = run_warmup(cfg, blocks, xt, kb_w, tails, shards=shards)
+        with span("turbo.warmup"):
+            w_np = run_warmup(cfg, blocks, xt, kb_w, tails, shards=shards)
         (f_np, outs, K, passes, converged, max_residual, lane_ok,
-         _) = gauge_fixpoint(cfg, make_pass_runner(cfg, blocks,
-                                                   shards=shards),
-                             w_np, tails, max_passes)
+         _) = gauge_fixpoint(cfg, run, w_np, tails, max_passes)
     else:
-        run = make_pass_runner(cfg, blocks, shards=shards)
         g_np = batch_carry_np(cfg, chunks)
         g_np["fir_tail"] = tails
         converged = False
@@ -899,33 +912,34 @@ def demod_array_turbo(cfg: DemodConfig, x: np.ndarray, chunks: int = 32,
         max_residual = float("inf")
         outs = f_np = prev_fp = None
         for _ in range(max_passes):
-            f_np, outs, _ = run(g_np)
-            # g'[0] = exact initial, g'[i+1] = f[i]; tails stay data-exact.
-            g_new = _shift_lanes(init_np, f_np)
-            g_new.update(fir_tail=tails, tick=np.zeros_like(g_new["tick"]))
-            passes += 1
-            residual = 0.0
-            same = True
-            for name in CARRY_FIELDS:
-                a, b = g_np[name], g_new[name]
-                if not np.array_equal(a, b):
-                    same = False
-                    if np.issubdtype(a.dtype, np.floating):
-                        residual = max(residual,
-                                       float(np.max(np.abs(a - b))))
-                    else:
-                        residual = max(residual, 1.0)
-            max_residual = residual
-            if same:
-                converged = True      # bitwise fixpoint implies both modes
-                break
-            if converge == "symbols":
-                fp = _output_fingerprint(outs, rows, shards)
-                if fp == prev_fp:
-                    converged = True
+            with span("turbo.pass"):
+                f_np, outs, _ = run(g_np)
+                # g'[0] = exact initial, g'[i+1] = f[i]; tails stay data-exact.
+                g_new = _shift_lanes(init_np, f_np)
+                g_new.update(fir_tail=tails, tick=np.zeros_like(g_new["tick"]))
+                passes += 1
+                residual = 0.0
+                same = True
+                for name in CARRY_FIELDS:
+                    a, b = g_np[name], g_new[name]
+                    if not np.array_equal(a, b):
+                        same = False
+                        if np.issubdtype(a.dtype, np.floating):
+                            residual = max(residual,
+                                           float(np.max(np.abs(a - b))))
+                        else:
+                            residual = max(residual, 1.0)
+                max_residual = residual
+                if same:
+                    converged = True      # bitwise fixpoint implies both modes
                     break
-                prev_fp = fp
-            g_np = g_new
+                if converge == "symbols":
+                    fp = _output_fingerprint(outs, rows, shards)
+                    if fp == prev_fp:
+                        converged = True
+                        break
+                    prev_fp = fp
+                g_np = g_new
 
     # Safety net: any flagged chunk invalidates the fast-path result for the
     # affected stream positions: redo the whole recording sequentially (the
@@ -950,15 +964,19 @@ def demod_array_turbo(cfg: DemodConfig, x: np.ndarray, chunks: int = 32,
 
     # Assemble symbols in stream order from the final pass; in gauge mode
     # rotate each lane's symbols into chunk 0's gauge (exact sign/swap).
-    sym_re, sym_im, valid, lonce = _lanes_to_host(outs, shards, P)
-    lonce = lonce.astype(np.int32)
-    del outs, blocks
+    with span("turbo.assemble"):
+        sym_re, sym_im, valid, lonce = _lanes_to_host(outs, shards, P)
+        lonce = lonce.astype(np.int32)
+        del outs, blocks, run
     tail_start = P * chunk_len           # == turbo_n when P == chunks
     tail_c = {name: np.asarray(f_np[name])[P - 1] for name in CARRY_FIELDS}
-    result = lambda syms: TurboResult(
-        symbols=syms, converged=converged, passes=passes,
-        max_residual=max_residual, gauges=K, fell_back=fallback_n > 0,
-        fallback_samples=fallback_n)
+
+    def result(syms):
+        count("turbo.passes", passes)
+        return TurboResult(
+            symbols=syms, converged=converged, passes=passes,
+            max_residual=max_residual, gauges=K, fell_back=fallback_n > 0,
+            fallback_samples=fallback_n)
 
     if K is not None and cfg.oqpsk:
         # OQPSK gauge assembly: the sequential tail/suffix continues in
@@ -968,13 +986,17 @@ def demod_array_turbo(cfg: DemodConfig, x: np.ndarray, chunks: int = 32,
         tail_syms, end_c = None, tail_c
         if tail_start < N:
             tail_syms, end_c = _sequential_from(cfg, device, tail_c,
-                                                f32_to_iq(xf[tail_start:]))
-        return result(_assemble_oqpsk_gauge(
-            sym_re, sym_im, valid, lonce, K[:P], f_np["slot"][:P],
-            f_np["inphase"][:P], f_np["locked_once"][:P], tail_syms,
-            pending=(end_c["slot"], end_c["inphase"], end_c["locked_once"])))
+                                                xf[tail_start:])
+        with span("turbo.assemble"):
+            syms = _assemble_oqpsk_gauge(
+                sym_re, sym_im, valid, lonce, K[:P], f_np["slot"][:P],
+                f_np["inphase"][:P], f_np["locked_once"][:P], tail_syms,
+                pending=(end_c["slot"], end_c["inphase"],
+                         end_c["locked_once"]))
+        return result(syms)
 
-    parts = [_assemble_qpsk_gauge(sym_re, sym_im, valid, lonce, K)]
+    with span("turbo.assemble"):
+        parts = [_assemble_qpsk_gauge(sym_re, sym_im, valid, lonce, K)]
     # Sequential tail/suffix from lane P-1's exit carry (exact when the
     # fixpoint converged / the prefix verified; within loop noise
     # otherwise).
@@ -990,8 +1012,10 @@ def demod_array_turbo(cfg: DemodConfig, x: np.ndarray, chunks: int = 32,
             prev_q = float(parts[0]["im"][-1]) if len(parts[0]) else 0.0
             tail_c.update(p_phase=np.float32(pp), t_prev=np.float32(prev_q))
         parts.append(_sequential_from(cfg, device, tail_c,
-                                      f32_to_iq(xf[tail_start:]))[0])
-    return result(np.concatenate(parts))
+                                      xf[tail_start:])[0])
+    with span("turbo.assemble"):
+        syms = np.concatenate(parts)
+    return result(syms)
 
 
 

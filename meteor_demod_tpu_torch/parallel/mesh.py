@@ -60,6 +60,7 @@ from ..demod.state import (CARRY_FIELDS, BlockOutput, DemodCarry,
                            PackedOutput, batch_carry, carry_from_numpy,
                            carry_to_numpy)
 from ..dsp.fir import f32_to_iq, iq_to_f32
+from ..profiling import span
 from ..utils import mesh_devices, select_device, to_device, to_host_async
 from .serialize import ROW_KEYS, pack_rows, unpack_rows
 
@@ -434,17 +435,18 @@ class FleetDemodulator:
         pairs for "i16" / "u8" -> per-stream BlockOutput (PackedOutput with
         packed_output) of numpy arrays; with chain_blocks=K the rows are the
         K blocks' step-concatenation."""
-        blocks = self._feed(blocks)
-        prev, outs, tel_tick, locked_vec = self._dispatch(blocks)
-        if self.recover_flagged and np.any(self.stream_flags):
-            outs = self._recover(prev, blocks, outs,
-                                 update_telemetry=tel_tick,
-                                 locked_vec=locked_vec)
-        if tel_tick and self._rescue_blocks:
-            self._rescue_streak[locked_vec == 0] += 1
-            self._rescue_streak[locked_vec != 0] = 0
-            self._maybe_rescue()
-        return outs
+        with span("fleet.process_blocks"):
+            blocks = self._feed(blocks)
+            prev, outs, tel_tick, locked_vec = self._dispatch(blocks)
+            if self.recover_flagged and np.any(self.stream_flags):
+                outs = self._recover(prev, blocks, outs,
+                                     update_telemetry=tel_tick,
+                                     locked_vec=locked_vec)
+            if tel_tick and self._rescue_blocks:
+                self._rescue_streak[locked_vec == 0] += 1
+                self._rescue_streak[locked_vec != 0] = 0
+                self._maybe_rescue()
+            return outs
 
     def _dispatch(self, blocks: np.ndarray):
         """One step of every shard on checked blocks: every shard's upload,
@@ -462,24 +464,28 @@ class FleetDemodulator:
         waits = []
         for i, rows in enumerate(sh.rows):
             with sh.on(i, carry_leaves(self._carries[i])):
-                x = to_device(blocks[rows], sh.devices[i])
-                self._carries[i], outs, tel = fns[i](self._carries[i], x)
-                want = list(dataclasses.astuple(outs)) + [
-                    self._carries[i].flags]
-                if tel_tick:
-                    want += [self._carries[i].locked] + [
-                        tel[k] for k in TELEMETRY]
-                waits.append(to_host_async(want))
-        host = [wait() for wait in waits]
-        col = lambda j: _cat([h[j] for h in host])
-        n_out = len(dataclasses.astuple(outs))
-        outs = type(outs)(*(col(j) for j in range(n_out)))
-        self.stream_flags = np.array(col(n_out))
-        if not tel_tick:
-            return prev, outs, False, None
-        self.telemetry = combine_telemetry(
-            [dict(zip(TELEMETRY, h[n_out + 2:])) for h in host])
-        return prev, outs, True, np.array(col(n_out + 1))
+                with span("fleet.upload"):
+                    x = to_device(blocks[rows], sh.devices[i])
+                with span("fleet.launch"):
+                    self._carries[i], outs, tel = fns[i](self._carries[i], x)
+                with span("fleet.readback"):
+                    want = list(dataclasses.astuple(outs)) + [
+                        self._carries[i].flags]
+                    if tel_tick:
+                        want += [self._carries[i].locked] + [
+                            tel[k] for k in TELEMETRY]
+                    waits.append(to_host_async(want))
+        with span("fleet.readback"):
+            host = [wait() for wait in waits]
+            col = lambda j: _cat([h[j] for h in host])
+            n_out = len(dataclasses.astuple(outs))
+            outs = type(outs)(*(col(j) for j in range(n_out)))
+            self.stream_flags = np.array(col(n_out))
+            if not tel_tick:
+                return prev, outs, False, None
+            self.telemetry = combine_telemetry(
+                [dict(zip(TELEMETRY, h[n_out + 2:])) for h in host])
+            return prev, outs, True, np.array(col(n_out + 1))
 
     def _maybe_rescue(self) -> None:
         """Kick long-unlocked streams onto the downward escape sweep (see
@@ -523,50 +529,52 @@ class FleetDemodulator:
         corrected carry back to the shards that hold a flagged stream; the
         other shards are left alone. Flags are cleared: a nonzero
         stream_flags entry always refers to the dispatch just processed."""
-        sh = self._shards
-        flagged = np.nonzero(self.stream_flags)[0]
-        prev_np = sh.carry_to_numpy(prev)
-        cur = {k: np.array(v)
-               for k, v in sh.carry_to_numpy(self._carries).items()}
-        outs = type(outs)(*(np.array(v) for v in dataclasses.astuple(outs)))
-        a, b = (("sym_i", "sym_q") if self.packed_output
-                else ("sym_re", "sym_im"))
-        slots = outs.valid.shape[1]
-        for i in flagged:
-            st = numpy_carry_to_scalar_state(
-                self.cfg, {k: v[i] for k, v in prev_np.items()})
-            sym, st = oracle_replay(
-                self.cfg, f32_to_iq(self._decode_rows(blocks[i])), st)
-            n = len(sym)
-            if n > slots:
-                raise RuntimeError(
-                    f"stream {i}: oracle produced {n} symbols > {slots} "
-                    f"slots")
-            for k, v in scalar_state_to_numpy_carry(self.cfg, st).items():
-                cur[k][i] = v
-            re, im = sym["re"], sym["im"]
-            if self.packed_output:
-                re, im = quantize(re), quantize(im)
-            getattr(outs, a)[i] = 0
-            getattr(outs, b)[i] = 0
-            outs.valid[i] = 0
-            getattr(outs, a)[i, :n] = re
-            getattr(outs, b)[i, :n] = im
-            outs.valid[i, :n] = 1
-            outs.locked_once[i, :n] = sym["locked_once"]
-            outs.locked_once[i, n:] = st["locked_once"]
-        self.recovered_streams += len(flagged)
-        if locked_vec is not None:
-            locked_vec[flagged] = cur["locked"][flagged]
-        for j in sorted({int(i) // sh.per for i in flagged}):
-            self._carries[j] = carry_from_numpy(
-                {k: v[sh.rows[j]] for k, v in cur.items()}, sh.devices[j])
-        if update_telemetry:
-            # Re-derive the fleet telemetry from the corrected host state
-            # (the device values were taken before the splice). Between
-            # ticks self.telemetry keeps the last tick's values.
-            self.telemetry = self.telemetry_of(cur, outs.valid)
-        return outs
+        with span("fleet.recover"):
+            sh = self._shards
+            flagged = np.nonzero(self.stream_flags)[0]
+            prev_np = sh.carry_to_numpy(prev)
+            cur = {k: np.array(v)
+                   for k, v in sh.carry_to_numpy(self._carries).items()}
+            outs = type(outs)(*(np.array(v)
+                                for v in dataclasses.astuple(outs)))
+            a, b = (("sym_i", "sym_q") if self.packed_output
+                    else ("sym_re", "sym_im"))
+            slots = outs.valid.shape[1]
+            for i in flagged:
+                st = numpy_carry_to_scalar_state(
+                    self.cfg, {k: v[i] for k, v in prev_np.items()})
+                sym, st = oracle_replay(
+                    self.cfg, f32_to_iq(self._decode_rows(blocks[i])), st)
+                n = len(sym)
+                if n > slots:
+                    raise RuntimeError(
+                        f"stream {i}: oracle produced {n} symbols > {slots} "
+                        f"slots")
+                for k, v in scalar_state_to_numpy_carry(self.cfg, st).items():
+                    cur[k][i] = v
+                re, im = sym["re"], sym["im"]
+                if self.packed_output:
+                    re, im = quantize(re), quantize(im)
+                getattr(outs, a)[i] = 0
+                getattr(outs, b)[i] = 0
+                outs.valid[i] = 0
+                getattr(outs, a)[i, :n] = re
+                getattr(outs, b)[i, :n] = im
+                outs.valid[i, :n] = 1
+                outs.locked_once[i, :n] = sym["locked_once"]
+                outs.locked_once[i, n:] = st["locked_once"]
+            self.recovered_streams += len(flagged)
+            if locked_vec is not None:
+                locked_vec[flagged] = cur["locked"][flagged]
+            for j in sorted({int(i) // sh.per for i in flagged}):
+                self._carries[j] = carry_from_numpy(
+                    {k: v[sh.rows[j]] for k, v in cur.items()}, sh.devices[j])
+            if update_telemetry:
+                # Re-derive the fleet telemetry from the corrected host state
+                # (the device values were taken before the splice). Between
+                # ticks self.telemetry keeps the last tick's values.
+                self.telemetry = self.telemetry_of(cur, outs.valid)
+            return outs
 
     def telemetry_of(self, leaves: dict, valid: np.ndarray) -> dict:
         """The fleet telemetry of host carry leaves and a valid array (both
