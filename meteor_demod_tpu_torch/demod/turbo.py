@@ -48,7 +48,12 @@ convergence mode (the default) removes the serialization:
 If the fixpoint is not reached, the result is still a valid demodulation
 whose soft symbols agree with the sequential path to within the loop noise
 (the `converged` flag and residuals report the state); callers needing the
-sequential decisions pass strict=True.
+sequential decisions pass strict=True. Strict mode accepts the verified
+prefix of lanes and, while it pays in launches, runs resume rounds: the
+same fixpoint over the unverified lanes, anchored at the prefix's exit
+carry as an exact lane-0 entry, its other lanes entered where the fixpoint
+before left them (_resume_rounds). What no round accepts goes down the
+sequential path from the last accepted boundary.
 
 Layout. A pass is make_fleet_demod's chain (parallel/mesh.py) over the
 recording viewed as (C, kb*L, 2): lane c is chunk c, and its output row
@@ -100,8 +105,9 @@ class TurboResult:
     gauges: np.ndarray | None = None  # per-lane cumulative quadrant K (gauge mode)
     # Samples re-demodulated sequentially by a fallback (0 on the fast
     # path). The strict-mode bounded fallback resumes from the last
-    # verified chunk boundary, so this is proportional to the divergent
-    # SUFFIX, not the whole recording.
+    # verified chunk boundary (after any resume rounds), so this is
+    # proportional to the suffix no fixpoint verified, not the whole
+    # recording.
     fallback_samples: int = 0
 
 
@@ -842,12 +848,20 @@ def demod_array_turbo(cfg: DemodConfig, x: np.ndarray, chunks: int = 32,
         path's; int8 soft values can differ by loop-noise LSBs), exact
         sequential otherwise. The fallback is BOUNDED: it accepts the
         verified prefix of chunk lanes (every per-lane convergence
-        criterion held, _lane_ok_np) and resumes the sequential path from
-        that boundary's carry, so its cost is proportional to the divergent
-        suffix (TurboResult.fallback_samples reports it); only a fully
-        unverified run redoes the whole file. The CLI -T path sets this;
-        library callers who prefer speed can inspect `converged`
-        themselves.
+        criterion held, _lane_ok_np). On one device in QPSK it then runs
+        resume rounds over the unverified lanes, each the same fixpoint
+        anchored at the last accepted exit carry and entering the other
+        lanes where the fixpoint before left them, while a round costs
+        fewer launches than the sequential path would
+        (_resume_rounds; counters turbo.resumes and
+        turbo.resumed_samples). The sequential path resumes from the last
+        accepted boundary's carry, so its cost is proportional to what no
+        round accepted (TurboResult.fallback_samples reports it; passes,
+        converged and gauges stay the first fixpoint's); only a fully
+        unverified run redoes the whole file. OQPSK and several devices
+        go to the sequential path straight after the prefix. The CLI -T
+        path sets this; library callers who prefer speed can inspect
+        `converged` themselves.
     """
     cfg.validate()
     if converge == "auto":
@@ -884,6 +898,8 @@ def demod_array_turbo(cfg: DemodConfig, x: np.ndarray, chunks: int = 32,
             tails = boundary_tails(xt, chunks, chunk_len, cfg.taps)
             run = make_pass_runner(cfg, blocks, shards=shards)
     count("turbo.samples", N)
+    # Every call record holds the resume counter from here on, 0 or not.
+    count("turbo.resumes", 0)
 
     def _sequential(tag_converged=True):
         syms, _ = _sequential_from(cfg, device, None, xf)
@@ -950,29 +966,31 @@ def demod_array_turbo(cfg: DemodConfig, x: np.ndarray, chunks: int = 32,
     # Strict contract: a non-converged fixpoint may carry decision-level
     # errors near chunk boundaries, but only from the FIRST unverified
     # lane onward. Accept the verified prefix (decision-final by the same
-    # induction that justifies a converged run, see _lane_ok_np) and
-    # resume the exact sequential path from its boundary carry, so the
-    # fallback cost is proportional to the divergent suffix, not the
-    # whole recording. P == 0 (or a non-gauge converge mode) degenerates
-    # to the full sequential redo.
+    # induction that justifies a converged run, see _lane_ok_np), resume
+    # the fixpoint from its boundary carry while that pays (QPSK on one
+    # device, _resume_rounds), and demodulate what is left sequentially
+    # from the last accepted carry, so the fallback cost is proportional
+    # to the suffix no round verified, not the whole recording. P == 0
+    # (or a non-gauge converge mode) degenerates to the full sequential
+    # redo.
+    fallback = strict and not converged
     P = chunks
-    if strict and not converged:
+    if fallback:
         P = verified_prefix(lane_ok)
         if P == 0:
             return _sequential(tag_converged=False)
-    fallback_n = N - P * chunk_len if strict and not converged else 0
 
     # Assemble symbols in stream order from the final pass; in gauge mode
     # rotate each lane's symbols into chunk 0's gauge (exact sign/swap).
     with span("turbo.assemble"):
         sym_re, sym_im, valid, lonce = _lanes_to_host(outs, shards, P)
         lonce = lonce.astype(np.int32)
-        del outs, blocks, run
-    tail_start = P * chunk_len           # == turbo_n when P == chunks
+        del outs, run
     tail_c = {name: np.asarray(f_np[name])[P - 1] for name in CARRY_FIELDS}
 
-    def result(syms):
+    def result(syms, accepted):
         count("turbo.passes", passes)
+        fallback_n = N - accepted * chunk_len if fallback else 0
         return TurboResult(
             symbols=syms, converged=converged, passes=passes,
             max_residual=max_residual, gauges=K, fell_back=fallback_n > 0,
@@ -983,40 +1001,144 @@ def demod_array_turbo(cfg: DemodConfig, x: np.ndarray, chunks: int = 32,
         # lane P-1's gauge (carry untouched: rotating an odd-gauge carry
         # would need grid-dependent surgery), then the whole half-value
         # stream is re-paired globally (see _assemble_oqpsk_gauge).
+        del blocks
         tail_syms, end_c = None, tail_c
-        if tail_start < N:
+        if P * chunk_len < N:
             tail_syms, end_c = _sequential_from(cfg, device, tail_c,
-                                                xf[tail_start:])
+                                                xf[P * chunk_len:])
         with span("turbo.assemble"):
             syms = _assemble_oqpsk_gauge(
                 sym_re, sym_im, valid, lonce, K[:P], f_np["slot"][:P],
                 f_np["inphase"][:P], f_np["locked_once"][:P], tail_syms,
                 pending=(end_c["slot"], end_c["inphase"],
                          end_c["locked_once"]))
-        return result(syms)
+        return result(syms, P)
 
     with span("turbo.assemble"):
         parts = [_assemble_qpsk_gauge(sym_re, sym_im, valid, lonce, K)]
-    # Sequential tail/suffix from lane P-1's exit carry (exact when the
-    # fixpoint converged / the prefix verified; within loop noise
-    # otherwise).
-    if tail_start < N:
-        if K is not None and int(K[P - 1]) % 4 != 0:
-            # Rotate the carry into chunk 0's gauge so the tail continues
-            # the emitted stream: symbols transform by e^{-j K pi/2}, so
-            # the NCO phase shifts by +K pi/2 (the mix is by e^{-j
-            # p_phase}). t_prev (previous symbol Q, gauge 0) is the last
-            # assembled symbol's Q, whichever chunk emitted it.
-            pp = np.mod(float(tail_c["p_phase"])
-                        + (int(K[P - 1]) % 4) * float(_HALF_PI), 2 * np.pi)
-            prev_q = float(parts[0]["im"][-1]) if len(parts[0]) else 0.0
-            tail_c.update(p_phase=np.float32(pp), t_prev=np.float32(prev_q))
+    # Lane P-1's exit carry, in chunk 0's gauge: exact when the fixpoint
+    # converged / the prefix verified; within loop noise otherwise.
+    tail_c = _gauge0_carry(tail_c, K, P, parts)
+    if fallback and len(devices) == 1:
+        P, tail_c = _resume_rounds(cfg, blocks[0], tails, P, tail_c, parts,
+                                   (init_np, w_np, f_np, K), max_passes)
+    del blocks
+    if P * chunk_len < N:
         parts.append(_sequential_from(cfg, device, tail_c,
-                                      xf[tail_start:])[0])
+                                      xf[P * chunk_len:])[0])
     with span("turbo.assemble"):
         syms = np.concatenate(parts)
-    return result(syms)
+    return result(syms, P)
 
+
+def _gauge0_carry(c: dict, K, P: int, parts: list) -> dict:
+    """Lane P-1's exit carry c (numpy leaves of one stream) rotated into
+    chunk 0's gauge, so that what continues from it continues the emitted
+    stream: symbols transform by e^{-j K pi/2}, so the NCO phase shifts by
+    +K[P-1] pi/2 (the mix is by e^{-j p_phase}), and t_prev (the previous
+    symbol's Q, gauge 0) is the last assembled symbol's Q, whichever chunk
+    emitted it (parts: the assembled symbol arrays so far). K None or a
+    whole turn leaves c as it is."""
+    if K is None or int(K[P - 1]) % 4 == 0:
+        return c
+    pp = np.mod(float(c["p_phase"]) + (int(K[P - 1]) % 4) * float(_HALF_PI),
+                2 * np.pi)
+    last = [p for p in parts if len(p)]
+    prev_q = float(last[-1]["im"][-1]) if last else 0.0
+    return dict(c, p_phase=np.float32(pp), t_prev=np.float32(prev_q))
+
+
+def _relock_seeds(seeds: dict, exit_locked) -> None:
+    """A round's lane seeds (numpy leaves with a lane axis), in place: a
+    lane whose seed is unlocked while its own last exit was locked takes
+    the nearest upstream locked seed, the state a lane or more earlier.
+
+    Such a seed is the exit of a predecessor the fixpoint before ran from
+    an unlocked entry. On a far Doppler side an unlocked loop does not lock
+    within a chunk, so the unlock would be handed on one lane a pass and
+    bar every lane behind it from the verified prefix; from a locked state
+    whose carrier is a lane stale the lane locks within its first blocks.
+    The FIR tail, tick and flags stay the seed's own."""
+    locked = np.asarray(seeds["locked"])
+    up = 0 if locked[0] else None
+    for j in range(1, len(locked)):
+        if locked[j]:
+            up = j
+        elif up is not None and exit_locked[j]:
+            for name in CARRY_FIELDS:
+                if name not in ("fir_tail", "tick", "flags"):
+                    seeds[name][j] = seeds[name][up]
+
+
+def _resume_rounds(cfg, blocks: torch.Tensor, tails, P: int, carry: dict,
+                   parts: list, last: tuple, max_passes: int):
+    """Strict turbo's resume rounds over lanes P.. of `blocks`, the
+    recording on its device as (C, kb*L, 2) (tails: its boundary_tails),
+    QPSK.
+
+    A round is the gauge fixpoint (gauge_fixpoint) over the R = C - P
+    remaining lanes with `carry`, the last accepted exit in chunk 0's
+    gauge (_gauge0_carry), as lane 0's exact entry, as span_submit runs it
+    from a mid-stream carry: the verified-prefix induction starts there as
+    it starts at the recording's first sample, and the round's gauges
+    rotate its lanes straight into the stream's. A flagged lane ends the
+    round's accepted prefix. The accepted lanes are assembled onto `parts`.
+
+    The other lanes start where the fixpoint before left them, not from a
+    warm-up: its entries for a next pass (_gauge_shift_np of its last
+    exits), each in the lane's own gauge, unlocked ones relocked
+    (_relock_seeds). `last` is that fixpoint's (init_np, w_np, f_np, K)
+    over lanes 0.. (the first fixpoint). A cold warm-up need not lock at
+    all where the carrier sits far from where the sweep starts (a pass's
+    far Doppler side), and a lane that locks within its chunk is accepted
+    only from an exact entry; lanes the fixpoint before left locked on
+    their carrier enter locked again.
+
+    When a round runs follows from launch counts: a launch takes the same
+    time for one lane as for C, so a round costs at most max_passes*kb
+    launches where the sequential path takes R*kb for the same samples. A
+    round runs only when it costs fewer, and the rounds stop after one
+    that accepted fewer lanes than it took passes. Counters: turbo.resumes
+    (rounds), turbo.resumed_samples (the samples of their accepted lanes).
+
+    Returns (P, carry): the accepted lane prefix and the carry the
+    sequential path continues from."""
+    C, chunk_len = blocks.shape[0], blocks.shape[1]
+    base = 0
+    init_prev, w_prev, f_prev, K_prev = last
+    while C - P > max_passes:
+        with span("turbo.prepare"):
+            g_next = _gauge_shift_np(init_prev, f_prev, w_prev,
+                                     np.diff(K_prev), tails[base:], cfg)
+            init_np = {name: np.asarray(v)[None] for name, v in carry.items()}
+            tails_r = tails[P:].copy()
+            tails_r[0] = carry["fir_tail"]
+            seeds = {name: v[P - base:].copy() for name, v in g_next.items()}
+            _relock_seeds(seeds, np.asarray(f_prev["locked"])[P - base:])
+            w_np = finish_warmup_carry(cfg, seeds, tails_r, init_np)
+            rest = blocks[P:]
+            run = make_pass_runner(cfg, rest)
+        f_np, outs, K, passes, _, _, lane_ok, _ = gauge_fixpoint(
+            cfg, run, w_np, tails_r, max_passes, init_np=init_np)
+        got = verified_prefix(np.asarray(lane_ok, bool)
+                              & (np.asarray(f_np["flags"]) == 0))
+        count("turbo.resumes")
+        count("turbo.resumed_samples", got * chunk_len)
+        if got:
+            with span("turbo.assemble"):
+                re, im, valid, lonce = _lanes_to_host(
+                    outs, Shards([rest.device], C - P, "chunks"), got)
+                parts.append(_assemble_qpsk_gauge(
+                    re, im, valid, lonce.astype(np.int32), K))
+            carry = _gauge0_carry(
+                {name: np.asarray(f_np[name])[got - 1]
+                 for name in CARRY_FIELDS}, K, got, parts)
+        del outs, run
+        base, init_prev, w_prev, f_prev, K_prev = P, init_np, w_np, f_np, K
+        P += got
+        if got < passes:
+            break
+    return P, carry
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,8 @@ Counters. count(name, n) adds to process-wide totals; call(root) spans one
 call of an entry point and, when it ends, appends the counters' changes over
 the call to a ring of the last CALLS_KEPT calls of that root: calls(root).
 The CLI's counters are those of turbo (demod/turbo.py): turbo.samples,
-turbo.sequential_samples, turbo.passes.
+turbo.sequential_samples, turbo.passes, turbo.resumes,
+turbo.resumed_samples.
 """
 
 from __future__ import annotations

@@ -32,6 +32,7 @@ from meteor_demod_tpu.demod.state import BlockOutput as JaxOutput
 from meteor_demod_tpu.demod.state import DemodCarry as JaxCarry
 from meteor_demod_tpu.sim import synth_psk
 
+from meteor_demod_tpu_torch import profiling
 from meteor_demod_tpu_torch.config import DemodConfig
 from meteor_demod_tpu_torch.demod import turbo
 from meteor_demod_tpu_torch.demod.pipeline import demod_array, quantize
@@ -457,14 +458,20 @@ def test_turbo_slow_state_propagation_blocks_convergence(short_recording):
     """Chunks much shorter than the p_err EMA memory: decisions stabilize
     while the lock state still propagates one chunk per pass, and the
     entry-residual criterion keeps convergence undeclared. Two passes report
-    converged=False with a residual; strict then resumes sequentially after
-    the verified prefix (here lane 0 at most), ending decision-equal."""
+    converged=False with a residual; strict then accepts the verified prefix
+    (here lane 0 at most), resumes the fixpoint from it over the other three
+    lanes (a round of at most 2 x 2 launches against their 6 sequential
+    ones),
+    and demodulates sequentially after what that round verified, ending
+    decision-equal."""
     cfg, x, seq = short_recording
+    before = profiling.counters().get("turbo.resumed_samples", 0)
     res = turbo.demod_array_turbo(cfg, x, chunks=CHUNKS, device="cpu",
                                   max_passes=2, strict=True)
+    resumed = profiling.counters().get("turbo.resumed_samples", 0) - before
     assert not res.converged and res.passes in (0, 2)
     assert res.fell_back
-    assert res.fallback_samples in (len(x), len(x) - 2 * L)
+    assert res.fallback_samples + resumed in (len(x), len(x) - 2 * L)
     _same_decisions(res.symbols, seq)
 
 
