@@ -7,10 +7,17 @@ Each pass of the window is meteor_demod_tpu_torch.cli.main with -T 0, in
 this process, from the WAV on disk to the .s on disk; the next pass
 overwrites the .s. The window ends at the first pass boundary after
 `seconds`.
+
+The window also keeps, on the card, `replay_blocks` block calls drawn
+uniformly from all of the last pass's (turbo's passes and its sequential
+path alike): one lane's state, input and output each (_Kept). The check
+replays each kept block in the reference from that state and counts the
+soft bytes it does not reproduce (`replay_per_mille`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import shutil
@@ -22,14 +29,91 @@ import numpy as np
 import torch
 
 from ..gen import signal
-from ..reference import check_pass, params
+from ..reference import check_fleet, check_pass, oracle, params
 from ..reference import fir as ref_fir
 from ..reference.params import RING_SYMBOLS
+from ..reference.quantize import quantize
 from ..trace import span
 
 SPAN = "pass"
 GROUP_DELAY = 32.4     # samples from a tick's input to its signal time
 FILE_BUFFER_BYTES = 32768
+REPLAY = "replay_per_mille"
+# A kept block's leaves, stacked by dtype: one copy a group.
+LEAF_GROUPS = (oracle.FLOAT_LEAVES, oracle.INT_LEAVES)
+OUT_GROUPS = (("sym_re", "sym_im"), ("valid", "locked_once"))
+
+
+class _Kept:
+    """A stand-in for the program's make_batch_demod through the window
+    (where pipeline's sequential path and mesh's fleet step, which turbo's
+    passes run, take it from): every demodulator made in a pass keeps, for
+    a uniform sample of `n` of all the block calls of the pass (reservoir
+    sampling with geometric skips, Li's algorithm L, drawn from `seed`),
+    one lane's state, filter delay line, input and output, as clones on
+    the card: no copy to the host, no wait, and between kept calls one
+    comparison."""
+
+    def __init__(self, n: int, seed: int):
+        self.n, self.seed = n, seed
+        self.reset()
+
+    def reset(self) -> None:
+        self.rng = np.random.default_rng(self.seed)
+        self.calls, self.kept, self.w, self.next = 0, [], 1.0, self.n - 1
+
+    def _skip(self) -> None:
+        self.w *= math.exp(math.log(1.0 - self.rng.random()) / self.n)
+        self.next += int(math.log(1.0 - self.rng.random())
+                         / math.log1p(-self.w)) + 1
+
+    def _slot(self):
+        i, self.calls = self.calls, self.calls + 1
+        if i < self.n:
+            self.kept.append(None)
+            if i == self.n - 1:
+                self._skip()
+            return i
+        if i < self.next:
+            return None
+        self._skip()
+        return int(self.rng.integers(0, self.n))
+
+    def make(self, orig):
+        def make_batch_demod(cfg, batch, *args, **kwargs):
+            fn = orig(cfg, batch, *args, **kwargs)
+
+            def demod(carry, x):
+                slot = self._slot()
+                if slot is None:
+                    return fn(carry, x)
+                k = int(self.rng.integers(0, batch))
+                before = [torch.stack([getattr(carry, n)[k] for n in names])
+                          for names in LEAF_GROUPS]
+                tail, xin = carry.fir_tail[k].clone(), x[k].clone()
+                carry1, outs = fn(carry, x)
+                self.kept[slot] = dict(
+                    before=before, tail=tail, x=xin,
+                    flags=carry1.flags[k].clone(),
+                    outs=[torch.stack([getattr(outs, n)[k] for n in names])
+                          for names in OUT_GROUPS])
+                return carry1, outs
+            return demod
+        return make_batch_demod
+
+
+@contextlib.contextmanager
+def _keeping(kept: _Kept):
+    from meteor_demod_tpu_torch.demod import pipeline
+    from meteor_demod_tpu_torch.parallel import mesh
+    origs = [(m, m.make_batch_demod) for m in (pipeline, mesh)]
+    for m, orig in origs:
+        m.make_batch_demod = kept.make(orig)
+    try:
+        yield
+    finally:
+        for m, orig in origs:
+            m.make_batch_demod = orig
 
 
 def _argv(run, st) -> list:
@@ -58,6 +142,7 @@ def setup(run) -> dict:
         torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="lrpt_bench_")
     st = dict(host=host, meta=meta, tmp=tmp,
+              kept=_Kept(int(mix["replay_blocks"]), run.seed + 3),
               wav=os.path.join(tmp, "pass.wav"),
               out=os.path.join(tmp, "pass.s"))
     signal.write_wav(st["wav"], host, fs)
@@ -75,12 +160,15 @@ def setup(run) -> dict:
 
 def window(run, st: dict) -> dict:
     times, sizes, attempted, failed = [], [], 0, 0
+    kept = st["kept"]
     t0 = time.perf_counter()
     while True:
         attempted += 1
+        kept.reset()                          # the last pass's blocks
         a = time.perf_counter()
         try:
-            rc = _one_pass(run, st)
+            with _keeping(kept):
+                rc = _one_pass(run, st)
         except Exception as e:                # a pass that raised: counted
             print(f"pass: raised {e!r}", file=sys.stderr)
             rc = -1
@@ -109,7 +197,18 @@ def end_to_end(run, st: dict, w: dict) -> dict:
 
 
 def release(st: dict) -> None:
-    pass
+    """The kept blocks to the host, once the window has closed."""
+    def leaves(groups, names):
+        return {n: v[None] for g, ns in zip(groups, names)
+                for n, v in zip(ns, g.cpu().numpy())}
+    st["kept_np"] = [
+        dict(before=leaves(b["before"], LEAF_GROUPS),
+             tail=b["tail"].cpu().numpy()[None],
+             x=b["x"].cpu().numpy()[None],
+             flags=int(b["flags"].item()),
+             outs=leaves(b["outs"], OUT_GROUPS))
+        for b in st["kept"].kept if b is not None]
+    st["kept"].reset()
 
 
 def _informed(run, st, starts: list) -> list:
@@ -130,6 +229,78 @@ def _informed(run, st, starts: list) -> list:
                                            mix["t_ca_s"]),
             u0=t0 * cfg["symrate"] / fs, gain=190.0 / (rms * 0.4)))
     return infos
+
+
+def _place(host: np.ndarray, heads: list) -> list:
+    """Each head's ((k, 2) float32 samples) first sample in the (n, 2) int16
+    recording, or None where the recording does not hold it."""
+    h32 = np.ascontiguousarray(host).view(np.int32).reshape(-1)
+    ints = []
+    for h in heads:
+        q = h.astype(np.int16)
+        ints.append(np.ascontiguousarray(q).view(np.int32).reshape(-1)
+                    if np.array_equal(q, h) else None)
+    firsts = np.array([q[0] for q in ints if q is not None], np.int32)
+    cand = np.flatnonzero(np.isin(h32, firsts))
+    return [None if q is None else next(
+        (int(c) for c in cand[h32[cand] == q[0]]
+         if np.array_equal(h32[c:c + len(q)], q)), None) for q in ints]
+
+
+def replay(run, st: dict, cst: dict, bank: np.ndarray) -> tuple:
+    """The kept blocks replayed in the reference from the program's state,
+    delay line and input at each (the reference's own filter and
+    recurrence): per mille of their soft bytes and lock flags that differ
+    from the program's output, over the kept blocks whose lane tracks the
+    pass's carrier at the place the recording holds its samples (a lane in
+    acquisition, or a block not of the recording, is left out, as is one
+    the program's safety net flagged, whose output it does not emit).
+    Fewer than `replay_min_blocks` compared reads 1000."""
+    cfg, mix, host = run.cfg, run.mix, st["host"]
+    fs, L = float(cfg["samplerate"]), int(cfg["block_len"])
+    fire_rate = cfg["symrate"] * (2 if cfg["oqpsk"] else 1)
+    kept = st["kept_np"]
+    places = _place(host, [b["x"][0, :16] for b in kept])
+    jobs, rows, blocks = [], [], []
+    d = dict(kept=len(kept), flagged=0, unplaced=0, untracked=0,
+             compared=0, symbols=0, bytes=0)
+    for b, at in zip(kept, places):
+        if b["flags"] != 0:
+            d["flagged"] += 1
+            continue
+        if at is None:
+            d["unplaced"] += 1
+            continue
+        dop = signal.pass_doppler_hz(at, fs, mix["f_center_hz"],
+                                     mix["altitude_km"], mix["t_ca_s"])
+        if not check_fleet.tracking(b["before"], np.array([dop]), fire_rate,
+                                    mix["track_hz"])[0]:
+            d["untracked"] += 1
+            continue
+        jobs.append(dict(x=b["x"], tail=b["tail"], state=b["before"]))
+        blocks.append(at // L)
+        o = b["outs"]
+        rows.append(dict(sym_i=quantize(o["sym_re"]),
+                         sym_q=quantize(o["sym_im"]),
+                         valid=o["valid"], locked_once=o["locked_once"]))
+    res = (check_fleet.replay(cst, bank, jobs, 1, run.device)
+           if jobs else [])
+    one = np.ones(1, bool)
+    moved = []
+    for r, (ref, locked, _) in zip(rows, res):
+        c = check_fleet.compare([r], ref, locked, 1, one, ~one)
+        d["bytes"] += c["bytes"]
+        d["symbols"] += c["symbols"]
+        moved.append(c["bytes"])
+    d["compared"] = len(jobs)
+    # The blocks that moved most: [bytes, the recording's block].
+    d["most"] = sorted(([m, b] for m, b in zip(moved, blocks)),
+                       reverse=True)[:3]
+    d["median_bytes"] = float(np.median(moved)) if moved else None
+    per_mille = (1000.0 * d["bytes"] / (2 * d["symbols"])
+                 if d["compared"] >= int(mix["replay_min_blocks"])
+                 and d["symbols"] else 1000.0)
+    return per_mille, d
 
 
 def check(run, st: dict) -> dict:
@@ -175,19 +346,26 @@ def check(run, st: dict) -> dict:
     per_seg = 2 * S * int(per_block)
     places, gauges, bytes_d = [], [], []
     seg_off = seg_fail = seg_sym = 0
-    found = None
+    found, first_match, first_search_s = None, None, 0.0
     for i, s in enumerate(seg):
         ref = check_pass.soft_bytes(out[i][W:W + S])
         pred = int(round(written_before_E + (s - E) * per_block))
         # The .s starts at the ring the program's acquisition locked in,
-        # some rings from the reference's: the first segment is searched
-        # widely, the others near the place it was found at.
-        if found is None:
-            at, search = pred, int(mix["search_symbols"])
+        # which may lie far from the reference's: the first segment is
+        # searched over the whole acquisition (check_pass.first_span), the
+        # others near the place it was found at.
+        if r0 is None:
+            d, tr, agree = None, None, -1.0
+        elif found is None:
+            t = time.perf_counter()
+            lo, hi = check_pass.first_span(pred, s, per_block, E,
+                                           int(mix["search_symbols"]))
+            d, tr, agree = check_pass.search_all(prog, ref, lo, hi, oqpsk)
+            first_search_s += time.perf_counter() - t
+            first_match = [d, tr, agree]
         else:
-            at, search = pred + int(round(found)), 4 * drift
-        d, tr, agree = (check_pass.align(prog, ref, at, oqpsk, search)
-                        if r0 is not None else (None, None, -1.0))
+            d, tr, agree = check_pass.align(
+                prog, ref, pred + int(round(found)), oqpsk, 4 * drift)
         if d is None or agree < 0.9:
             seg_fail += 1
             places.append(None)
@@ -217,6 +395,8 @@ def check(run, st: dict) -> dict:
         length_off = per_seg
     detail = dict(start_blocks=E, start_tracked=start["tracked"],
                   first_ring=r0, symbols_written=len(prog),
+                  first_match=first_match,
+                  first_search_s=round(first_search_s, 3),
                   segments=len(seg), segments_failed=seg_fail,
                   segments_off_gauge=wrong_gauge,
                   segments_off_place=wrong_place,
@@ -226,9 +406,11 @@ def check(run, st: dict) -> dict:
                   length_off=length_off,
                   segment_mean_abs_byte_diff=(float(np.median(bytes_d))
                                               if bytes_d else None))
+    per_mille, detail["replay"] = replay(run, st, cst, bank)
     print(f"check pass: {detail}", file=sys.stderr)
     mismatches = (seg_off + length_off
                   + (seg_fail + wrong_gauge + wrong_place) * per_seg)
     shutil.rmtree(st["tmp"], ignore_errors=True)
-    return {"numbers": {"mismatches": (mismatches, run.limit("mismatches"))},
+    return {"numbers": {REPLAY: (round(per_mille, 4), run.limit(REPLAY)),
+                        "mismatches": (mismatches, run.limit("mismatches"))},
             "detail": detail}

@@ -18,11 +18,16 @@ float32 program shares:
   lane's length on, as another rounding may acquire later; one there, one
   at the end), each from a state worked out from the traffic itself
   (carrier phase and Doppler, symbol timing, locked), which converge onto
-  the sequential's locked trajectory. Each is found in the .s near its
-  predicted place (the first within `search_symbols`, since the program's
-  acquisition may lock some rings from the reference's) under the
+  the sequential's locked trajectory. Each is found in the .s under the
   demodulator's phase symmetry (QPSK: a quarter turn; OQPSK: a quarter turn
   with the half-symbol relabelling), and every hard decision must agree.
+  The first is searched for over the whole acquisition (first_span: from
+  the .s's first symbol to where it would lie had the program written from
+  the recording's first sample, within the reference's acquisition of its
+  prediction; search_all), since the program's acquisition may lock many
+  rings from the reference's (OQPSK: a marginal lock that creeps to the
+  carrier over hundreds of blocks); the others near their predicted
+  places, moved by the offset the first was found at.
   All segments must share one symmetry, the first segment's, and one offset
   from the predicted places within `drift_symbols`, so a chunk assembled in
   another quadrant, or one that drops or repeats symbols, is caught;
@@ -40,6 +45,8 @@ from numpy.lib.stride_tricks import sliding_window_view
 from . import fir, oracle
 from .params import RING_SYMBOLS
 from .quantize import first_written_ring, quantize
+
+KEEP = 8        # places of best correlation that search_all judges exactly
 
 
 def informed_state(cst: dict, cfg: dict, lanes: list) -> dict:
@@ -153,21 +160,14 @@ def _transformed(ref: np.ndarray, shift: int, tr: int, oqpsk: bool):
     return (flat * pattern(tr, shift, len(flat))).astype(np.int16)
 
 
-def align(prog: np.ndarray, ref: np.ndarray, pred: int, oqpsk: bool,
-          search: int, probe: int = 512):
-    """Best (shift, transform, agreement) of the reference's (n, 2) bytes
-    against the .s (m, 2) within `search` symbols of symbol `pred`. QPSK:
-    shift in symbols and a quarter-turn rotation of each pair; OQPSK: shift
-    in half symbols (bytes) and a sign for even and odd bytes."""
-    r = signs(ref[:probe])
-    unit = 2 if oqpsk else 1
-    flat = prog.reshape(-1) if oqpsk else prog
-    lo = max(0, unit * (pred - search))
+def _agreements(prog: np.ndarray, r: np.ndarray, lo: int, hi: int,
+                oqpsk: bool) -> np.ndarray:
+    """(hi - lo + 1, 4): the share of the probe's signs r ((n, 2)) that the
+    .s (m, 2) matches at each place lo..hi in each symmetry. QPSK: places
+    in symbols, a quarter-turn rotation of each pair; OQPSK: places in half
+    symbols (bytes), a sign for even and odd bytes."""
     n_r = len(r) * (2 if oqpsk else 1)
-    hi = min(unit * (pred + search), len(flat) - n_r)
-    if hi < lo:
-        return None, None, -1.0
-    flat = signs(flat[lo:hi + n_r])
+    flat = signs((prog.reshape(-1) if oqpsk else prog)[lo:hi + n_r])
     if oqpsk:
         win = sliding_window_view(flat, n_r)[:hi - lo + 1]
         rf = r.reshape(-1)
@@ -176,14 +176,99 @@ def align(prog: np.ndarray, ref: np.ndarray, pred: int, oqpsk: bool,
             1)
         # The pattern's parity follows the byte's place in the .s.
         par = (np.arange(lo, hi + 1) % 2)[:, None]
-        agree = np.where(par == 0, agree, agree[:, [0, 3, 2, 1]])
-    else:
-        win = sliding_window_view(flat, len(r), axis=0)
-        win = win[:hi - lo + 1].transpose(0, 2, 1)
-        agree = np.stack([(win == rotate(r, rot)).mean((1, 2))
-                          for rot in range(4)], 1)
+        return np.where(par == 0, agree, agree[:, [0, 3, 2, 1]])
+    win = sliding_window_view(flat, len(r), axis=0)
+    win = win[:hi - lo + 1].transpose(0, 2, 1)
+    return np.stack([(win == rotate(r, rot)).mean((1, 2))
+                     for rot in range(4)], 1)
+
+
+def align(prog: np.ndarray, ref: np.ndarray, pred: int, oqpsk: bool,
+          search: int, probe: int = 512):
+    """Best (shift, transform, agreement) of the reference's (n, 2) bytes
+    against the .s (m, 2) within `search` symbols of symbol `pred`. QPSK:
+    shift in symbols and a quarter-turn rotation of each pair; OQPSK: shift
+    in half symbols (bytes) and a sign for even and odd bytes."""
+    r = signs(ref[:probe])
+    unit = 2 if oqpsk else 1
+    n_r = len(r) * unit
+    lo = max(0, unit * (pred - search))
+    hi = min(unit * (pred + search), unit * len(prog) - n_r)
+    if hi < lo:
+        return None, None, -1.0
+    agree = _agreements(prog, r, lo, hi, oqpsk)
     k, tr = np.unravel_index(int(np.argmax(agree)), agree.shape)
     return lo + int(k), int(tr), float(agree[k, tr])
+
+
+def _correlate(x: np.ndarray, h: np.ndarray, n: int) -> np.ndarray:
+    """sum_m x[k + m] * conj(h[m]) for k in 0..n-1, by FFT: a circular
+    correlation of a length that nothing wraps in."""
+    size = 1 << int(len(x) - 1).bit_length()
+    return np.fft.ifft(np.fft.fft(x, size) * np.conj(np.fft.fft(h, size))
+                       )[:n]
+
+
+def first_span(pred: int, s: int, per_block: float, start_blocks: int,
+               search: int) -> tuple:
+    """The symbols (lo, hi) of the .s where the first segment, at block s
+    and predicted at symbol pred, is searched for: from the .s's first
+    symbol to where it would lie had the program written from the
+    recording's first sample, plus `search`, and no further from pred than
+    the reference's acquisition took (start_blocks' symbols). A program
+    that starts writing later or earlier than the reference is found; a
+    head of symbols dropped beyond that is a failed segment."""
+    room = int(start_blocks * per_block)
+    return (max(0, pred - room),
+            min(pred + room, int(s * per_block) + search))
+
+
+def search_all(prog: np.ndarray, ref: np.ndarray, start: int, end: int,
+               oqpsk: bool, probe: int = 512, chunk: int = 1 << 20):
+    """align's (shift, transform, agreement) over every place of the .s
+    from symbol `start` to symbol `end`, a span whose sliding windows
+    would not fit in memory. The probe's signs are cross-correlated with
+    the .s's by FFT, a piece of `chunk` places at a time (some 150 MB
+    whatever the span), as one complex correlation c: QPSK's pairs as
+    I + jQ, whose four quarter turns score +-Re c and +-Im c; OQPSK's even
+    probe bytes as the real part and odd ones as the imaginary, whose four
+    sign patterns score +-Re c +-Im c. The KEEP places whose best symmetry
+    scores highest are judged by align's agreement, which alone picks the
+    symmetry (a byte of 0 scores 0 but may agree); the best is the result,
+    ties to the earliest place and symmetry, as align breaks them."""
+    r = signs(ref[:probe])
+    unit = 2 if oqpsk else 1
+    n_r = len(r) * unit
+    lo0 = unit * max(0, start)
+    hi = min(unit * end, unit * len(prog) - n_r)
+    if hi < lo0:
+        return None, None, -1.0
+    if oqpsk:
+        rf = r.reshape(-1)
+        even = np.arange(n_r) % 2 == 0
+        h = np.where(even, rf, 0) + 1j * np.where(even, 0, rf)
+        flat = prog.reshape(-1)
+    else:
+        h = r[:, 0] + 1j * r[:, 1]
+        flat = prog
+    step = max(1, min(chunk, hi - lo0 + n_r) - n_r + 1)
+    best = []
+    for lo in range(lo0, hi + 1, step):
+        n = min(step, hi + 1 - lo)
+        piece = signs(flat[lo:lo + n + n_r - 1])
+        if not oqpsk:
+            piece = piece[:, 0] + 1j * piece[:, 1]
+        c = _correlate(piece, h, n)
+        score = (np.abs(c.real) + np.abs(c.imag) if oqpsk
+                 else np.maximum(np.abs(c.real), np.abs(c.imag)))
+        k = min(KEEP, n)
+        best += [(score[i], lo + int(i))
+                 for i in np.argpartition(score, -k)[-k:]]
+    places = sorted({k for _, k in sorted(best, reverse=True)[:KEEP]})
+    agree = np.concatenate([_agreements(prog, r, k, k, oqpsk)
+                            for k in places])
+    i, tr = np.unravel_index(int(np.argmax(agree)), agree.shape)
+    return places[i], int(tr), float(agree[i, tr])
 
 
 def decisions_off(prog: np.ndarray, ref: np.ndarray, shift: int, tr: int,

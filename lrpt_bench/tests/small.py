@@ -17,7 +17,11 @@ SMALL = {
                   limits={"mismatches": 4}),
     "cli_pass": dict(seconds=0.75, t_ca_s=0.0, check_segments=3,
                      segment_warmup_blocks=6, segment_blocks=2,
-                     settle_blocks=4, start_max_blocks=60),
+                     settle_blocks=4, start_max_blocks=60,
+                     replay_blocks=16, replay_min_blocks=4,
+                     limits={"mismatches": 0,
+                             "replay_per_mille": {"qpsk72k": 2.0,
+                                                  "oqpsk80k": 2.0}}),
 }
 
 

@@ -19,7 +19,12 @@ def test_every_cell_finds_its_files():
         run = R.Run(BENCH, w["name"], 1, 1.0, False, None)
         assert run.cfg["name"] == w["config"]
         importlib.import_module(f"lrpt_bench.drivers.{run.mix['kind']}")
-        assert set(run.mix["limits"]) == {"mismatches"}
+        # The pass check also replays kept blocks from the program's state.
+        numbers = {"fleet": {"mismatches"},
+                   "cli_pass": {"mismatches", "replay_per_mille"}}
+        assert set(run.mix["limits"]) == numbers[run.mix["kind"]]
+        for name in run.mix["limits"]:
+            assert run.limit(name) >= 0        # one for this configuration
         assert run.end_to_end_names(), w["name"]
         assert "setup_s" in run.end_to_end_names()
         assert run.per_layer(), w["name"]

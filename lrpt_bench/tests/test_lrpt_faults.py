@@ -12,8 +12,11 @@ import pytest
 
 from small import execute, small_run
 
-CELLS = ("qpsk72k.fleet128", "oqpsk80k.fleet128", "qpsk72k.pass10min")
+CELLS = ("qpsk72k.fleet128", "oqpsk80k.fleet128", "qpsk72k.pass10min",
+         "oqpsk80k.pass10min")
 FLEETS = CELLS[:2]
+# The pass cells: their check replays kept blocks from the program's state.
+PASSES = CELLS[2:]
 
 
 def state_unchanged(orig):
@@ -58,7 +61,9 @@ def test_correct_is_false_under_each_fault(cell, fault, monkeypatch, capsys):
     if fault == "symbol_altered" and "pass" in cell:
         monkeypatch.setattr(turbo, "demod_array_turbo", turbo_symbol_altered(
             turbo.demod_array_turbo))
-    res = execute(small_run(cell, 21), capsys)
+    run = small_run(cell, 21)
+    run.warm = False            # a pass cell's warm-up: the check needs none
+    res = execute(run, capsys)
     n = res["checks"]["mismatches"]["value"]
     if fault == "sound":
         assert res["correct"]
@@ -66,10 +71,11 @@ def test_correct_is_false_under_each_fault(cell, fault, monkeypatch, capsys):
         assert not res["correct"] and n > 0
 
 
-@pytest.mark.parametrize("cell", FLEETS)
+@pytest.mark.parametrize("cell", FLEETS + PASSES)
 def test_another_summation_order_is_correct(cell, capsys):
     run = small_run(cell, 23)
     run.fir = "reordered"
+    run.warm = False
     res = execute(run, capsys)
     assert res["correct"]
 
@@ -77,9 +83,20 @@ def test_another_summation_order_is_correct(cell, capsys):
 @pytest.mark.parametrize("cell", FLEETS)
 def test_the_control_is_not_correct_here_either(cell, capsys):
     """The TF32 control at the small sizes on the CPU (the card's readings
-    at the cells' sizes are test_lrpt_control.py). The pass cells' .s does
-    not separate it from a sound float32 order (PERF.md)."""
+    at the cells' sizes are test_lrpt_control.py)."""
     run = small_run(cell, 22)
     run.fir = "tf32"
     res = execute(run, capsys)
     assert not res["correct"] and res["checks"]["mismatches"]["value"] > 0
+
+
+@pytest.mark.parametrize("cell", PASSES)
+def test_the_control_fails_the_replay(cell, capsys):
+    """The TF32 control at the small sizes on the CPU: the pass's .s does
+    not separate it from a sound float32 order, the kept blocks replayed
+    from the program's state do (their small-size limit: small.py)."""
+    run = small_run(cell, 22)
+    run.fir, run.warm = "tf32", False
+    res = execute(run, capsys)
+    c = res["checks"]["replay_per_mille"]
+    assert not res["correct"] and c["value"] > c["limit"]
