@@ -39,6 +39,19 @@ SPAN = "pass"
 GROUP_DELAY = 32.4     # samples from a tick's input to its signal time
 FILE_BUFFER_BYTES = 32768
 REPLAY = "replay_per_mille"
+# The numbers check() compares, each with its limit under the mix's
+# "limits".
+NUMBERS = ("mismatches", REPLAY)
+# The mix at a size the CPU runs in a test (tests/small.py).
+SMALL = dict(seconds=0.75, t_ca_s=0.0, check_segments=3,
+             segment_warmup_blocks=6, segment_blocks=2, settle_blocks=4,
+             start_max_blocks=60, replay_blocks=16, replay_min_blocks=4,
+             limits={"mismatches": 0,
+                     REPLAY: {"qpsk72k": 2.0, "oqpsk80k": 2.0}})
+# The readings that set the limit on the card (tests/test_lrpt_control.py):
+# the window's seconds (one pass: its warm-up pass is skipped), and how
+# many seeds run sound, reordered and TF32.
+CONTROL = dict(window_s=1.0, seeds=(12, 3, 3))
 # A kept block's leaves, stacked by dtype: one copy a group.
 LEAF_GROUPS = (oracle.FLOAT_LEAVES, oracle.INT_LEAVES)
 OUT_GROUPS = (("sym_re", "sym_im"), ("valid", "locked_once"))

@@ -27,6 +27,16 @@ from ..trace import span
 
 LEAVES = check_fleet.LEAVES
 SPAN = "chain"
+# The numbers check() compares, each with its limit under the mix's
+# "limits".
+NUMBERS = ("mismatches",)
+# The mix at a size the CPU runs in a test (tests/small.py).
+SMALL = dict(streams=6, chain_blocks=2, loop_blocks=18, warmup_chains=30,
+             carrier_hz=[20.0, 150.0], dead_streams=1, check_chains=2,
+             exact_blocks=1, untracked_max=0, limits={"mismatches": 4})
+# The readings that set the limit on the card (tests/test_lrpt_control.py):
+# the window's seconds, and how many seeds run sound, reordered and TF32.
+CONTROL = dict(window_s=3.0, seeds=(12, 3, 3))
 
 
 def _carry_np(fleet) -> dict:

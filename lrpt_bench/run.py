@@ -9,11 +9,12 @@ from the root of a checkout. The cell names a configuration
 "kind" names its driver (drivers/<kind>.py). Set-up builds the program and
 warms every shape the window uses; the window runs for `seconds`. With
 --trace 0 the result holds the cell's end-to-end metrics, with --trace 1
-its per-layer metrics, each read by layer_metrics/<metric>.py from a
-torch.profiler trace of the window, the harness's spans and the program's
-counters. Then the program's state is freed and the plain reference in
-reference/ checks what the window produced: each number compared is
-printed beside its limit, last on standard error and last in the result.
+its per-layer metrics (those whose "workloads" list names the cell), each
+read by layer_metrics/<metric>.py from a torch.profiler trace of the
+window, the harness's spans and the program's counters. Then the
+program's state is freed and the plain reference in reference/ checks
+what the window produced: each number compared is printed beside its
+limit, last on standard error and last in the result.
 
 A run needs a CUDA card and the program (meteor_demod_tpu_torch) beside
 this folder; without either it exits non-zero and prints no result.
@@ -107,7 +108,13 @@ class Run:
 
     def per_layer(self) -> list:
         e2e = set(self.end_to_end_names())
-        return [m for m in self.bench["per_layer"] if m["moves"] in e2e]
+        return [m for m in self.bench["per_layer"]
+                if m["moves"] in e2e and reports(m, self.cell)]
+
+    def driver(self):
+        """The module drivers/<kind>.py that runs the mix's kind."""
+        return importlib.import_module(
+            f"lrpt_bench.drivers.{self.mix['kind']}")
 
 
 def power_limit() -> str:
@@ -167,7 +174,7 @@ def execute(run: Run, t_proc: float) -> int:
 
     from lrpt_bench import trace as tr
 
-    driver = importlib.import_module(f"lrpt_bench.drivers.{run.mix['kind']}")
+    driver = run.driver()
     cuda = run.device.type == "cuda"
     st = driver.setup(run)
     if cuda:

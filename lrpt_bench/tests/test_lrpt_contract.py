@@ -1,7 +1,6 @@
 """BENCHMARK.json against the contract: every cell's files are found, and
 every name and unit is in the allowed characters."""
 
-import importlib
 import json
 import re
 
@@ -18,11 +17,12 @@ def test_every_cell_finds_its_files():
     for w in BENCH["workloads"]:
         run = R.Run(BENCH, w["name"], 1, 1.0, False, None)
         assert run.cfg["name"] == w["config"]
-        importlib.import_module(f"lrpt_bench.drivers.{run.mix['kind']}")
-        # The pass check also replays kept blocks from the program's state.
-        numbers = {"fleet": {"mismatches"},
-                   "cli_pass": {"mismatches", "replay_per_mille"}}
-        assert set(run.mix["limits"]) == numbers[run.mix["kind"]]
+        driver = run.driver()
+        assert set(run.mix["limits"]) == set(driver.NUMBERS)
+        small = driver.SMALL.get("limits", run.mix["limits"])
+        assert set(small) == set(driver.NUMBERS)
+        assert set(driver.CONTROL) == {"window_s", "seeds"}
+        assert len(driver.CONTROL["seeds"]) == 3
         for name in run.mix["limits"]:
             assert run.limit(name) >= 0        # one for this configuration
         assert run.end_to_end_names(), w["name"]
@@ -32,7 +32,19 @@ def test_every_cell_finds_its_files():
             assert callable(R.load_reader(m["name"]))
     for c in BENCH["configs"]:
         assert (R.ROOT / c["file"]).exists()
-        assert c["reduced"] == []
+
+
+def test_every_reduced_key_states_its_published_value():
+    """A configuration cut from its source lists each key it changed in
+    `reduced`; its file holds the key and, under "published", the source's
+    value of it."""
+    for c in BENCH["configs"]:
+        cfg = json.loads((R.ROOT / c["file"]).read_text())
+        assert len(c["reduced"]) <= 16
+        for key in c["reduced"]:
+            assert NAME.match(key), key
+            assert key in cfg, (c["name"], key)
+            assert key in cfg.get("published", {}), (c["name"], key)
 
 
 def test_kernel_map_loads():
@@ -68,7 +80,7 @@ def test_names_and_units_are_in_the_allowed_characters():
 
 def test_metric_sets_follow_the_contract():
     e2e = {m["name"]: m for m in BENCH["end_to_end"]}
-    assert set(e2e) == {"fleet_msamples_per_s", "pass_s", "setup_s"}
+    assert "setup_s" in e2e and "workloads" not in e2e["setup_s"]
     assert e2e["setup_s"]["bound"] <= 0.25
     for m in e2e.values():
         assert 0.01 <= m["bound"] <= 0.25
@@ -80,6 +92,17 @@ def test_metric_sets_follow_the_contract():
         assert w["chips"] == 1
     assert all(set(m.get("workloads", [])) <= workloads
                for m in BENCH["end_to_end"])
+
+
+def test_every_per_layer_metric_lists_cells_that_report_what_it_moves():
+    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
+    cells = {w["name"] for w in BENCH["workloads"]}
+    for m in BENCH["per_layer"]:
+        assert m["workloads"], m["name"]
+        assert len(set(m["workloads"])) == len(m["workloads"]), m["name"]
+        for cell in m["workloads"]:
+            assert cell in cells, (m["name"], cell)
+            assert R.reports(e2e[m["moves"]], cell), (m["name"], cell)
 
 
 def test_chain_tail_reads_the_windows_chains():

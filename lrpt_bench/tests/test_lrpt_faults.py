@@ -4,19 +4,30 @@ exchange between chips and no batch mean, so the faults are a block step
 that hands back its state unchanged and a soft symbol altered where it is
 produced. The sound run of each cell is the same run with nothing broken,
 and a run with the matched filter summed in another float32 order is
-sound too."""
+sound too. Every cell of BENCHMARK.json of the fleet and cli_pass kinds
+is run."""
 
 import dataclasses
+import json
 
 import pytest
 
+from lrpt_bench import run as R
 from small import execute, small_run
 
-CELLS = ("qpsk72k.fleet128", "oqpsk80k.fleet128", "qpsk72k.pass10min",
-         "oqpsk80k.pass10min")
-FLEETS = CELLS[:2]
+BENCH = json.loads((R.ROOT / "BENCHMARK.json").read_text())
+
+
+def _cells(kind: str) -> tuple:
+    return tuple(w["name"] for w in BENCH["workloads"]
+                 if R.Run(BENCH, w["name"], 0, 1.0, False, None)
+                 .mix["kind"] == kind)
+
+
+FLEETS = _cells("fleet")
 # The pass cells: their check replays kept blocks from the program's state.
-PASSES = CELLS[2:]
+PASSES = _cells("cli_pass")
+CELLS = FLEETS + PASSES
 
 
 def state_unchanged(orig):
@@ -58,7 +69,7 @@ def test_correct_is_false_under_each_fault(cell, fault, monkeypatch, capsys):
         for name in ("block_demod", "block_demod_torch"):
             monkeypatch.setattr(backend, name,
                                 FAULTS[fault](getattr(backend, name)))
-    if fault == "symbol_altered" and "pass" in cell:
+    if fault == "symbol_altered" and cell in PASSES:
         monkeypatch.setattr(turbo, "demod_array_turbo", turbo_symbol_altered(
             turbo.demod_array_turbo))
     run = small_run(cell, 21)
